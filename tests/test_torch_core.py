@@ -1,0 +1,160 @@
+"""The port's framework-free core against xgcm_tpu: signature parsing,
+Axis/Grid construction (autoparsed and explicit), the parsers, and the
+rule that no module of the port imports JAX or the JAX package."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+import xgcm_tpu
+import xgcm_tpu_torch as xtt
+from tests.test_parsers import cf_ds, comodo_ds, sgrid_2d_ds, sgrid_3d_ds
+from tests.torch_parity import to_numpy
+from xgcm_tpu.core.metrics import iterate_axis_combinations as jax_combos
+from xgcm_tpu.parsers import metadata as jax_metadata
+from xgcm_tpu_torch.core.metrics import iterate_axis_combinations as torch_combos
+from xgcm_tpu_torch.parsers import metadata as torch_metadata
+
+PORT_DIR = pathlib.Path(xtt.__file__).resolve().parent
+
+SIGNATURES = [
+    "(X:center)->(X:left)",
+    "(X:left)->(X:center)",
+    "(X:center),(Y:center)->(X:left,Y:right)",
+    "(ax1:center)->(ax1:outer),(ax1:inner)",
+    "()->()",
+    "(X:center,Y:left)->()",
+]
+
+
+@pytest.mark.parametrize("sig", SIGNATURES)
+def test_signature_parse_matches(sig):
+    j = xgcm_tpu.GridUFuncSignature.from_string(sig)
+    t = xtt.GridUFuncSignature.from_string(sig)
+    assert (t.in_ax_names, t.in_ax_positions) == (j.in_ax_names, j.in_ax_positions)
+    assert (t.out_ax_names, t.out_ax_positions) == (j.out_ax_names, j.out_ax_positions)
+    assert str(t) == str(j)
+    for other in SIGNATURES:
+        assert t.equivalent(xtt.GridUFuncSignature.from_string(other)) == j.equivalent(
+            xgcm_tpu.GridUFuncSignature.from_string(other)
+        )
+
+
+@pytest.mark.parametrize("bad", ["(X:middle)->(X:left)", "X:center->X:left", "(X:center)"])
+def test_signature_errors_match(bad):
+    with pytest.raises(ValueError):
+        xgcm_tpu.GridUFuncSignature.from_string(bad)
+    with pytest.raises(ValueError):
+        xtt.GridUFuncSignature.from_string(bad)
+
+
+@pytest.mark.parametrize("axes", [("X",), ("X", "Y"), ("X", "Y", "Z")])
+def test_metric_combinations_match(axes):
+    assert list(torch_combos(axes)) == list(jax_combos(axes))
+
+
+def _axes_summary(grid):
+    return {
+        name: (dict(ax.coords), dict(ax.default_shifts), ax.boundary, ax.fill_value,
+               ax.periodic)
+        for name, ax in grid.axes.items()
+    }
+
+
+DATASETS = {"comodo": comodo_ds, "sgrid_2d": sgrid_2d_ds, "sgrid_3d": sgrid_3d_ds, "cf": cf_ds}
+
+
+@pytest.mark.parametrize("name", list(DATASETS))
+def test_parse_metadata_matches(name):
+    ds_j = DATASETS[name]()
+    ds_t = xtt.from_numpy_dataset(ds_j)
+    out_j, kw_j = jax_metadata.parse_metadata(ds_j)
+    out_t, kw_t = torch_metadata.parse_metadata(ds_t)
+    assert kw_t == kw_j
+    assert set(out_t.coords) == set(out_j.coords)
+    for k in out_j.coords:
+        np.testing.assert_array_equal(out_t.coords[k].values, to_numpy(out_j.coords[k]))
+
+
+@pytest.mark.parametrize("name", list(DATASETS))
+@pytest.mark.parametrize("periodic", [None, False, ["X"]])
+def test_autoparsed_grid_matches(name, periodic):
+    ds_j = DATASETS[name]()
+    g_j = xgcm_tpu.Grid(ds_j, periodic=periodic)
+    g_t = xtt.Grid(xtt.from_numpy_dataset(ds_j), periodic=periodic)
+    assert _axes_summary(g_t) == _axes_summary(g_j)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(),
+        dict(boundary="extend"),
+        dict(boundary={"X": "fill", "Y": "extrapolate"}, fill_value={"X": 2.5}),
+        dict(default_shifts={"X": {"center": "left"}}),
+        dict(periodic=["Y"]),
+    ],
+)
+def test_explicit_grid_matches(kwargs):
+    ds_j = xgcm_tpu.Dataset(coords={
+        "xc": ("xc", np.arange(6.0)), "xg": ("xg", np.arange(6.0)),
+        "yc": ("yc", np.arange(5.0)), "yg": ("yg", np.arange(5.0)),
+    })
+    coords = {"X": {"center": "xc", "left": "xg"}, "Y": {"center": "yc", "left": "yg"}}
+    g_j = xgcm_tpu.Grid(ds_j, coords=coords, autoparse_metadata=False, **kwargs)
+    g_t = xtt.Grid(xtt.from_numpy_dataset(ds_j), coords=coords,
+                   autoparse_metadata=False, **kwargs)
+    assert _axes_summary(g_t) == _axes_summary(g_j)
+
+
+def test_grid_construction_errors_match():
+    with pytest.raises(ValueError, match="conflict with"):
+        xtt.Grid(xtt.from_numpy_dataset(comodo_ds()), coords={"X": {"center": "XC"}})
+    ds = xtt.Dataset(coords={"a": ("a", np.arange(3.0))})
+    with pytest.raises(ValueError, match="more than one"):
+        xtt.Grid(ds, coords={"X": {"center": "a"}, "Y": {"center": "a"}},
+                 autoparse_metadata=False)
+    with pytest.raises(ValueError, match="Could not determine Axis names"):
+        xtt.Grid(ds, autoparse_metadata=False)
+
+
+def test_unported_grid_features_raise():
+    ds = xtt.from_numpy_dataset(comodo_ds())
+    with pytest.raises(NotImplementedError):
+        xtt.Grid(ds, face_connections={"face": {0: {"X": (None, None)}}})
+    with pytest.raises(NotImplementedError):
+        xtt.Grid(ds, metrics={("X",): ["XC"]})
+
+
+def test_from_numpy_dataset_keeps_numpy_coords_and_tensor_vars():
+    import torch
+
+    ds = xtt.from_numpy_dataset(sgrid_2d_ds())
+    assert isinstance(ds.coords["node_x"].data, np.ndarray)
+    assert isinstance(ds["grid"].data, torch.Tensor)
+    assert ds.attrs == {"Conventions": "SGRID-0.3.0"}
+    assert ds["grid"].attrs["cf_role"] == "grid_topology"
+    a = xtt.GriddedArray([[1.0, 2.0]], ("y", "x"), device="cpu")
+    assert isinstance(a.data, torch.Tensor) and a.device == torch.device("cpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_never_imports_jax_or_the_jax_package():
+    files = sorted(PORT_DIR.rglob("*.py")) + [PORT_DIR.parent / "chip_smoke.py"]
+    offenders = [
+        (p.name, mod)
+        for p in files
+        for mod in _imported_modules(p)
+        if mod.split(".")[0] in ("jax", "jaxlib", "xgcm_tpu")
+    ]
+    assert offenders == []

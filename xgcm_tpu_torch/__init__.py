@@ -1,0 +1,28 @@
+"""xgcm_tpu_torch: the PyTorch and CUDA port of xgcm_tpu, for NVIDIA Hopper.
+
+Finite-volume analysis of staggered (Arakawa) grid datasets: position-aware
+``interp``/``diff``/``min``/``max`` and the linear/log vertical transform, on
+torch tensors.  On a CUDA tensor the hot paths run hand-written CUDA kernels
+(``csrc/``); on a CPU tensor they run the kernels' plain PyTorch versions.
+The JAX package ``xgcm_tpu`` is the reference this package is tested
+against; this package imports neither it nor JAX.
+"""
+
+from .core.axis import Axis
+from .core.dataarray import GriddedArray
+from .core.dataset import Dataset, from_numpy_dataset
+from .core.grid import Grid
+from .core.grid_ufunc import GridUFunc, apply_as_grid_ufunc, as_grid_ufunc
+from .core.signature import GridUFuncSignature
+
+__all__ = [
+    "Axis",
+    "Dataset",
+    "Grid",
+    "GriddedArray",
+    "GridUFunc",
+    "GridUFuncSignature",
+    "apply_as_grid_ufunc",
+    "as_grid_ufunc",
+    "from_numpy_dataset",
+]

@@ -1,0 +1,50 @@
+// Shared helpers of the xgcm_tpu_torch kernels: dtype codes (kept equal to
+// DTYPE_CODES in ops/kernels/build.py), loads that widen 16-bit types to
+// float, and stores that round once.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+namespace xt {
+
+enum Dtype : int { F32 = 0, F64 = 1, F16 = 2, BF16 = 3 };
+
+// Compute type: 16-bit and 32-bit floats are computed in float, double in
+// double.
+template <typename T> struct Compute { using type = float; };
+template <> struct Compute<double> { using type = double; };
+
+__device__ __forceinline__ float to_compute(float x) { return x; }
+__device__ __forceinline__ double to_compute(double x) { return x; }
+__device__ __forceinline__ float to_compute(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_compute(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_compute(float x);
+template <> __device__ __forceinline__ float from_compute<float>(float x) { return x; }
+template <> __device__ __forceinline__ __half from_compute<__half>(float x) { return __float2half_rn(x); }
+template <> __device__ __forceinline__ __nv_bfloat16 from_compute<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <typename T> __device__ __forceinline__ T from_compute(double x);
+template <> __device__ __forceinline__ double from_compute<double>(double x) { return x; }
+
+// A double rounded to T and widened to T's compute type (a fill value
+// takes the array's dtype first, as jnp.asarray(fill_value, x.dtype) does).
+template <typename T> __device__ __forceinline__ typename Compute<T>::type round_to(double x);
+template <> __device__ __forceinline__ float round_to<float>(double x) { return (float)x; }
+template <> __device__ __forceinline__ double round_to<double>(double x) { return x; }
+template <> __device__ __forceinline__ float round_to<__half>(double x) {
+  return __half2float(__double2half(x));
+}
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(double x) {
+  return __bfloat162float(__double2bfloat16(x));
+}
+
+inline unsigned int blocks_for(long long work, int threads) {
+  long long b = (work + threads - 1) / threads;
+  return (unsigned int)(b < 1 ? 1 : b);
+}
+
+}  // namespace xt
