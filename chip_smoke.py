@@ -1,12 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of xgcm_tpu_torch on one CUDA card.
 
-Builds the three hand-written CUDA kernels from ``xgcm_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the shapes of the main path,
-drives the C-grid analysis step (``xgcm_tpu_torch.entry.step``) and the fused
-diagnostics at the width of one LLC4320 face (4320 x 4320, 50 levels, 36
-theta targets, float32), checks that the step went through every kernel and
-that its results are right, and times each kernel beside its plain version.
+Builds the six hand-written CUDA kernels from ``xgcm_tpu_torch/csrc``, holds
+each against its plain PyTorch version at the shapes of the main paths, and
+drives two paths at the width of one LLC4320 face (4320 x 4320 columns, 50
+levels, float32):
+
+* the C-grid analysis step (``xgcm_tpu_torch.entry.step``, kernels A and C)
+  and the fused diagnostics (kernel B), onto 36 theta targets;
+* the density-space analysis through ``Grid.transform`` and
+  ``Grid.transform_multi``: one field into 35 density classes
+  (conservative, kernel G), four fields (T, S, u, v) into the same classes
+  (kernel H), and the four onto 36 density levels (linear, kernel F).
+
+Each path runs with the launch counts set to 0 just before it and read just
+after; the script checks that every kernel of the path launched and that
+the results are right, and times each kernel beside its plain version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -20,8 +29,11 @@ torch and numpy only.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -34,15 +46,35 @@ ROOT = pathlib.Path(__file__).resolve().parent
 NY = NX = 4320  # one LLC4320 face
 NZ = 50
 N_TARGETS = 36
+N_EDGES = 36  # 35 density classes
+NV = 4  # T, S, u, v
+SAMPLE = 65536  # columns of the main path held against the plain version
 TOL_F32 = dict(rtol=1e-6, atol=1e-6)  # nvcc contracts a*b+c into FMAs
 TOL_BF16 = dict(rtol=1e-2, atol=1e-5)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, data sheet
 KERNELS = {
     "shift": ("xgcm_tpu_torch/csrc/shift.cu", "xgcm_tpu/ops/pallas_stencils.py:290"),
     "cgrid_diagnostics": (
         "xgcm_tpu_torch/csrc/cgrid_diagnostics.cu", "xgcm_tpu/ops/pallas_stencils.py:205"),
     "interp_linear": (
         "xgcm_tpu_torch/csrc/interp_linear.cu", "xgcm_tpu/ops/pallas_transform.py:239"),
+    "interp_linear_multi": (
+        "xgcm_tpu_torch/csrc/interp_linear.cu", "xgcm_tpu/ops/pallas_transform.py:494"),
+    "conservative": (
+        "xgcm_tpu_torch/csrc/conservative.cu", "xgcm_tpu/ops/pallas_transform.py:731"),
+    "conservative_multi": (
+        "xgcm_tpu_torch/csrc/conservative.cu", "xgcm_tpu/ops/pallas_transform.py:873"),
 }
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms on the card, "bytes" or "operations"): the larger of the
+    bytes over the memory rate and the float32 operations over the peak
+    rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def log(msg: str) -> None:
@@ -256,6 +288,289 @@ def check_main_path(check, gen, dev, outputs, ug, vg, theta, targets):
         "sampled columns == plain, np.interp oracle, card == CPU)")
 
 
+def linear_bound(cols, nv, n=NZ, m=N_TARGETS):
+    """Kernels C (nv = 1) and F on (cols, n) columns onto m shared levels:
+    theta and the nv phis read once, the targets, the nv outputs written
+    once; a merge of the sorted knots and levels needs about 2 (n + m)
+    compares and 3 m operations per variable for each column."""
+    nbytes = (cols * n * (1 + nv) + m + nv * cols * m) * 4
+    return bound(nbytes, cols * (2 * (n + m) + 3 * m * nv))
+
+
+def conservative_bound(cols, nv, n=NZ, m=N_EDGES):
+    """Kernels G (nv = 1) and H on (cols, n + 1) bounds into m - 1 bins:
+    the bounds, the nv fields and the edges read once, the nv outputs
+    written once; a merge of the sorted bounds and edges touches about
+    n + m (cell, bin) overlaps per column at about 8 operations each per
+    variable."""
+    nbytes = (cols * (n + 1) + nv * cols * n + m + nv * cols * (m - 1)) * 4
+    return bound(nbytes, cols * (n + m) * 8 * nv)
+
+
+def density_columns(gen, dev, cols, n=NZ, nv=NV):
+    """(sigma on bounds (cols, n + 1), sigma on centres (cols, n), nv
+    fields (cols, n)), float32 on the card.  Potential density minus 1000
+    kg/m^3 grows with depth from 24 by 0.01-0.09 a level (at 50 levels); ~10 % of the
+    columns are stored upside down (descending), ~10 % end at a sea floor
+    (NaN bounds below it), ~5 % have NaN bounds on top, 0.5 % are land (all
+    NaN).  The fields are T, S, u, v (a few NaN data at valid levels).  With
+    fewer levels the steps grow, so a column always spans about 24 to 26.6."""
+    r = torch.rand((cols,), generator=gen, device=dev)
+    step = 50 / n  # steps sized so that any column spans what 50 levels span
+    sig_b = torch.rand((cols, n + 1), generator=gen, device=dev).mul_(0.08 * step)
+    sig_b.add_(0.01 * step)
+    sig_b = torch.cumsum(sig_b, -1).add_(24.0)
+    desc = r < 0.1
+    sig_b[desc] = sig_b[desc].flip(-1)
+    k = torch.arange(n + 1, device=dev)
+    sig_b.masked_fill_(((r >= 0.1) & (r < 0.2))[:, None] & (k >= n + 1 - 7), float("nan"))
+    sig_b.masked_fill_(((r >= 0.2) & (r < 0.25))[:, None] & (k < 5), float("nan"))
+    sig_b.masked_fill_((r >= 0.995)[:, None], float("nan"))
+    sig_c = (sig_b[:, :-1] + sig_b[:, 1:]).mul_(0.5)
+    scales = ((30.0, 0.0), (10.0, 30.0), (1.0, -0.5), (1.0, -0.5))
+    fields = [torch.rand((cols, n), generator=gen, device=dev).mul_(a).add_(b)
+              for a, b in scales[:nv]]
+    fields[0].masked_fill_(((r >= 0.25) & (r < 0.27))[:, None] & (k[:n] == n // 2),
+                           float("nan"))
+    return sig_b, sig_c, fields
+
+
+def density_targets(dev):
+    """36 bin edges (35 density classes) and 36 density levels, float32;
+    about half of the columns reach below the last edge."""
+    return (torch.linspace(24.0, 26.6, N_EDGES, device=dev),
+            torch.linspace(24.05, 26.55, N_TARGETS, device=dev))
+
+
+def rebin_atol(col_abs_sum: float, n: int = NZ) -> float:
+    """n * 2**-24 * the largest column sum of |phi|: a bound on the rounding
+    of n float32 additions taken in another order (kernels G and H against
+    their plain version)."""
+    return n * 2.0**-24 * col_abs_sum
+
+
+def within_bf16(check, name, label, got, want, atol):
+    """bfloat16 results within one bf16 unit in the last place (plus the
+    float32 bound ``atol``) of the plain version: both round once from
+    float32 sums that may differ in their last bits."""
+    err = (got.float() - want.float()).abs()
+    nan_ok = torch.equal(torch.isnan(got), torch.isnan(want))
+    err = torch.where(torch.isnan(err), 0.0, err)
+    check.max_err[name] = max(check.max_err[name], float(err.max()))
+    if not nan_ok or not bool((err <= bf16_ulp(want).nan_to_num(0.0) + atol).all()):
+        raise AssertionError(f"{name} [{label}]: beyond one bf16 ulp of the plain version")
+
+
+def check_density_kernels(check, gen, dev):
+    """Kernels G, H and F on 262,144 test columns at the main path's depth
+    and widths (50 levels, 36 edges or levels, V = 4): against their plain
+    versions, the multi kernels against single calls (G, C), both
+    layouts, reassociation, bfloat16, and a degenerate cell exactly on an
+    edge.  Returns the inputs, for the timing phase."""
+    from xgcm_tpu_torch.ops.kernels import conservative as kg
+    from xgcm_tpu_torch.ops.kernels import interp_linear as kc
+
+    cols = 512 * 512
+    sig_b, sig_c, phis = density_columns(gen, dev, cols)
+    edges, levels = density_targets(dev)
+    sig_b[:1000, 10:12] = edges[7]  # degenerate cells on an interior edge
+    sums = [float(torch.nan_to_num(p).abs().sum(-1).max()) for p in phis]
+    plain = kg._conservative_multi_plain(sig_b, phis, edges)
+    for reassociate in (False, True):
+        check.compare("conservative", f"f32/reassociate={reassociate}",
+                      kg.conservative_rebin(sig_b, phis[0], edges, reassociate), plain[0],
+                      atol=2 * rebin_atol(sums[0]))
+    lanes = kg.conservative_rebin(sig_b.T.contiguous().T, phis[0].T.contiguous().T, edges,
+                                  out_T=True)
+    check.compare("conservative", "lanes-major", lanes.T, plain[0], atol=rebin_atol(sums[0]))
+    bf = [a.to(torch.bfloat16) for a in (sig_b, phis[0], edges)]
+    within_bf16(check, "conservative", "bf16", kg.conservative_rebin(*bf),
+                kg._conservative_plain(*bf), rebin_atol(sums[0]))
+    multi = kg.conservative_rebin_multi(sig_b, phis, edges)
+    for v, (o, pl) in enumerate(zip(multi, plain)):
+        check.compare("conservative_multi", f"var {v} vs plain", o, pl, atol=rebin_atol(sums[v]))
+        check.compare("conservative_multi", f"var {v} vs kernel G", o,
+                      kg.conservative_rebin(sig_b, phis[v], edges), atol=rebin_atol(sums[v]))
+    del plain, multi
+    lin_plain = kc._fused_multi_ref_torch(sig_c, phis, levels, True)
+    lin = kc.interp_linear_multi(sig_c, phis, levels, True)
+    for v, (o, pl) in enumerate(zip(lin, lin_plain)):
+        check.compare("interp_linear_multi", f"var {v} vs plain", o, pl, **TOL_F32)
+        check.compare("interp_linear_multi", f"var {v} vs kernel C", o,
+                      kc.interp_linear(sig_c, phis[v], levels, True), **TOL_F32)
+    bf = [a.to(torch.bfloat16) for a in (sig_c, *phis[:2], levels)]
+    for o, pl in zip(kc.interp_linear_multi(bf[0], bf[1:3], bf[3]),
+                     kc._fused_multi_ref_torch(bf[0], bf[1:3], bf[3])):
+        check.compare("interp_linear_multi", "bf16", o.float(), pl.float(), **TOL_BF16)
+    torch.cuda.synchronize()
+    log("phase 3: conservative (G), conservative_multi (H) and interp_linear_multi (F) "
+        "kernels match their plain versions and single calls")
+    return sig_b, sig_c, phis, edges, levels
+
+
+def rows(*tensors, step=540):
+    """Slices of 540 rows of each (NY, ...) tensor, so that comparisons in
+    float64 hold a few hundred MB at a time."""
+    for r in range(0, tensors[0].shape[0], step):
+        yield tuple(t[r:r + step] for t in tensors)
+
+
+def check_conservation(label, out, phi, sig_b, edges):
+    """Per column whose valid bounds all lie inside the bins: the sum of
+    the bins (float64) equals the sum of phi over the valid cells within
+    (n + m) * 2**-24 * sum |phi| (each bin sums at most n float32 terms,
+    and each split cell is rounded in two bins).  A degenerate cell (one
+    NaN bound) exactly on an interior edge counts into both bins, as the
+    reference does, so its column is left out.  Returns the columns
+    checked, those left out for that reason, and the worst relative
+    error."""
+    lo, hi = float(edges[0]), float(edges[-1])
+    checked, on_edge, worst = 0, 0, 0.0
+    for o, p, b in rows(out, phi, sig_b):
+        t1, t2 = b[..., :-1], b[..., 1:]
+        n1, n2 = torch.isnan(t1), torch.isnan(t2)
+        valid = ~(n1 & n2) & ~torch.isnan(p)
+        want = torch.where(valid, p, 0.0).double().sum(-1)
+        abs_sum = torch.where(valid, p.abs(), 0.0).double().sum(-1)
+        bn = torch.isnan(b)
+        inside = ((torch.where(bn, lo, b) >= lo).all(-1) & (torch.where(bn, hi, b) <= hi).all(-1)
+                  & valid.any(-1))
+        point = torch.where(n1, t2, t1)  # where a degenerate cell sits
+        twice = (valid & (n1 ^ n2) & torch.isin(point, edges[1:-1])).any(-1)
+        on_edge += int((inside & twice).sum())
+        inside &= ~twice
+        err = (torch.nansum(o.double(), -1) - want).abs()
+        if not bool((err <= (NZ + N_EDGES) * 2.0**-24 * abs_sum)[inside].all()):
+            raise AssertionError(f"{label}: a column's bins do not sum to its total")
+        checked += int(inside.sum())
+        rel = (err / abs_sum.clamp_min(1e-30))[inside]
+        worst = max(worst, float(rel.max()) if rel.numel() else 0.0)
+    if checked < NY * NX // 10:
+        raise AssertionError(f"{label}: only {checked} columns lie inside the bins")
+    return checked, on_edge, worst
+
+
+def check_finite(label, out):
+    """No infinities; a NaN only where no data reach (more than half of the
+    values finite)."""
+    finite = 0
+    for (o,) in rows(out):
+        if bool(torch.isinf(o).any()):
+            raise AssertionError(f"{label}: infinite values")
+        finite += int(torch.isfinite(o).sum())
+    if finite < out.numel() // 2:
+        raise AssertionError(f"{label}: only {finite} of {out.numel()} values are finite")
+    return finite / out.numel()
+
+
+def density_grid(xtt, nz=NZ):
+    """A Grid with one vertical axis: centres zc and bounds (outer) zo."""
+    ds = xtt.Dataset(coords={"zc": ("zc", np.arange(nz) + 0.5),
+                             "zo": ("zo", np.arange(nz + 1.0))})
+    return xtt.Grid(ds, coords={"Z": {"center": "zc", "outer": "zo"}}, periodic=False,
+                    autoparse_metadata=False)
+
+
+def density_calls(grid, das, sb, sc, edges, levels):
+    """The density-space analysis through the Grid API, one call per
+    kernel: one field into 35 classes (G), the four into the same classes
+    (H), the four onto 36 levels (F)."""
+    return {
+        "conservative": lambda: [grid.transform(das[0], "Z", edges, target_data=sb,
+                                                method="conservative")],
+        "conservative_multi": lambda: grid.transform_multi(das, "Z", edges, target_data=sb,
+                                                           method="conservative"),
+        "interp_linear_multi": lambda: grid.transform_multi(das, "Z", levels, target_data=sc),
+    }
+
+
+def run_counted(name, call, build, dev):
+    """``call()`` with the launch counts set to 0 just before it and read
+    just after; fails unless kernel ``name`` launched.  Returns (outputs,
+    launches of ``name``, host-clock ms, peak device GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = call()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    count = build.launch_counts()[name]
+    if count < 1:
+        raise AssertionError(f"the density path launched {name} {count} times")
+    return outs, count, ms, torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def check_density_outputs(check, name, outs, sig_b, sig_c, fields, edges, levels, idx):
+    """One density call's results at one face: dims, shapes, finiteness,
+    conservation (conservative), the outputs against single kernel calls
+    (G for H, C for F), and the sampled columns against the plain
+    version."""
+    from xgcm_tpu_torch.ops.kernels import conservative as kg
+    from xgcm_tpu_torch.ops.kernels import interp_linear as kc
+
+    cols = NY * NX
+    linear = name == "interp_linear_multi"
+    m = N_TARGETS if linear else N_EDGES - 1
+    for o in outs:
+        if o.dims != ("y", "x", "sigma") or o.shape != (NY, NX, m) or o.dtype != torch.float32:
+            raise AssertionError(f"{name} output is {o.dims} {o.shape} {o.dtype}")
+    shares = [round(check_finite(f"{name} var {v}", o.data), 4) for v, o in enumerate(outs)]
+    b2, c2 = sig_b.reshape(cols, NZ + 1), sig_c.reshape(cols, NZ)
+    f2 = [f.reshape(cols, NZ) for f in fields[:len(outs)]]
+    sums = [NZ * float(torch.nan_to_num(f).abs().max()) for f in f2]
+    conserved = []
+    if not linear:
+        conserved = [check_conservation(f"{name} var {v}", o.data, fields[v], sig_b, edges)
+                     for v, o in enumerate(outs)]
+    if name != "conservative":
+        for v, (o, f) in enumerate(zip(outs, f2)):
+            if linear:
+                single = kc.interp_linear(c2, f, levels, True)
+                tol = TOL_F32
+            else:
+                single = kg.conservative_rebin(b2, f, edges)
+                tol = dict(atol=rebin_atol(sums[v]))
+            for a, b in rows(o.data, single.reshape(NY, NX, m)):
+                check.compare(name, f"main/var {v} vs single kernel", a, b, **tol)
+            del single
+    if linear:
+        plain = kc._fused_multi_ref_torch(c2[idx], [f[idx] for f in f2], levels, True)
+    else:
+        plain = kg._conservative_multi_plain(b2[idx], [f[idx] for f in f2], edges)
+    for v, (o, pl) in enumerate(zip(outs, plain)):
+        tol = TOL_F32 if linear else dict(atol=rebin_atol(sums[v]))
+        check.compare(name, f"main/sample var {v}", o.data.reshape(cols, m)[idx], pl, **tol)
+    torch.cuda.synchronize()
+    log(f"phase 6: {name} correct: finite shares {shares}; conservation (columns checked, "
+        f"left out for a degenerate cell on an edge, worst relative error) {conserved}; "
+        f"{'V single kernel calls and ' if name != 'conservative' else ''}"
+        f"{SAMPLE} sampled columns == plain")
+
+
+def check_density_small(gen, dev, xtt):
+    """The density calls on a small grid on the card against the same calls
+    on the CPU."""
+    sb_s, sc_s, fs = density_columns(gen, dev, 40 * 72, n=12)
+    e_s = torch.linspace(24.0, 26.6, 11, device=dev)
+    l_s = torch.linspace(24.05, 26.55, 9, device=dev)
+
+    def small(d):
+        das = [xtt.GriddedArray(f.reshape(40, 72, 12).to(d), ("y", "x", "zc"), name=f"v{i}")
+               for i, f in enumerate(fs)]
+        sb = xtt.GriddedArray(sb_s.reshape(40, 72, 13).to(d), ("y", "x", "zo"), name="sigma")
+        sc = xtt.GriddedArray(sc_s.reshape(40, 72, 12).to(d), ("y", "x", "zc"), name="sigma")
+        calls = density_calls(density_grid(xtt, 12), das, sb, sc, e_s.to(d), l_s.to(d))
+        return [o for call in calls.values() for o in call()]
+
+    for a, b in zip(small(dev), small(torch.device("cpu"))):
+        if a.dims != b.dims or a.data.device.type != dev.type:
+            raise AssertionError("density path on the card: wrong dims or device")
+        if not torch.allclose(a.data.cpu(), b.data, rtol=1e-5, atol=1e-5, equal_nan=True):
+            raise AssertionError("density path on the card disagrees with the CPU")
+    log("phase 6: the density calls on a 40 x 72 x 12 grid on the card == on the CPU")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -281,9 +596,15 @@ def main(argv=None) -> int:
 
     # ---- phase 2: build -------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = build.build_library(verbose=True)
+    report_io = io.StringIO()
+    with contextlib.redirect_stdout(report_io):
+        lib_path = build.build_library(verbose=True)
     build.load_library()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
+    ptxas = report_io.getvalue()
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]
+    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", ptxas))
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}; {len(regs)} kernels, "
+        f"registers {min(regs)}-{max(regs)}, spill stores {spills} bytes")
 
     # ---- phase 3: each kernel against its plain version ---------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -297,6 +618,7 @@ def main(argv=None) -> int:
     th_c, ph_c = columns(gen, dev, 512 * 512, NZ)
     t_c = torch.linspace(-1.0, 27.0, N_TARGETS, device=dev)
     check_interp(check, gen, dev, th_c, ph_c, t_c)
+    dens_sample = check_density_kernels(check, gen, dev)
     torch.cuda.synchronize()
 
     # ---- phase 4: the main path at one LLC4320 face --------------------
@@ -331,7 +653,8 @@ def main(argv=None) -> int:
                     ug, vg, theta, targets)
 
     # ---- phase 5: timing ----------------------------------------------
-    times = {}
+    times, bounds, library = {}, {}, {}
+    n_face = NY * NX
     for op, direction, axis in (("diff", "left", 1), ("diff", "left", 0),
                                 ("diff", "right", 1), ("interp", "right", 0)):
         k_ms, p_ms = time_pair(lambda: shift(ug, axis, op, direction, "periodic"),
@@ -339,14 +662,22 @@ def main(argv=None) -> int:
         log(f"time shift {op}/{direction}/axis{axis} {NY}x{NX} f32: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms [{card}]")
         times.setdefault("shift", (k_ms, p_ms))
+    # the one PyTorch call that computes the periodic left diff along axis 1
+    check.compare("shift", "torch.diff", torch.diff(ug, dim=1, prepend=ug[:, -1:]),
+                  shift(ug, 1, "diff", "left", "periodic"), exact=True)
+    library["shift"], _ = time_pair(lambda: torch.diff(ug, dim=1, prepend=ug[:, -1:]))
+    bounds["shift"] = bound(2 * n_face * 4, n_face)
     times["cgrid_diagnostics"] = time_pair(lambda: cgrid_diagnostics(u, v, ix, iy),
                                            lambda: cgrid_diagnostics_plain(u, v, ix, iy))
     log(f"time cgrid_diagnostics {NY}x{NX} f32: kernel {times['cgrid_diagnostics'][0]:.4f} ms, "
         f"plain {times['cgrid_diagnostics'][1]:.4f} ms [{card}]")
+    # u, v and the three outputs; about 12 operations per point
+    bounds["cgrid_diagnostics"] = bound((5 * n_face + NX + NY) * 4, 12 * n_face)
     times["interp_linear"] = time_pair(lambda: interp_linear(th_c, ph_c, t_c),
                                        lambda: _fused_ref_torch(th_c, ph_c, t_c), reps=5)
     log(f"time interp_linear {th_c.shape[0]} cols x {NZ} knots -> {N_TARGETS} f32: kernel "
         f"{times['interp_linear'][0]:.4f} ms, plain {times['interp_linear'][1]:.4f} ms [{card}]")
+    bounds["interp_linear"] = linear_bound(th_c.shape[0], 1)
     cols = NY * NX
     ke_cols = d_ke.data[..., None].expand(NY, NX, NZ).reshape(cols, NZ)
     th_main = theta.reshape(cols, NZ)
@@ -357,6 +688,73 @@ def main(argv=None) -> int:
     diag_ms, _ = time_pair(lambda: diagnostics_op(grid, gu, gv))
     log(f"time step {NY}x{NX}x{NZ} -> {N_TARGETS} f32: {step_ms:.4f} ms; "
         f"cgrid_diagnostics op: {diag_ms:.4f} ms [{card}]")
+    del theta, th_main, ke_cols, zeta, div, ke_on_theta, d_zeta, d_div, d_ke, gu, gv
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the density-space path at one LLC4320 face -----------
+    sig_b, sig_c, fields = density_columns(gen, dev, cols)
+    sig_b = sig_b.reshape(NY, NX, NZ + 1)
+    sig_c = sig_c.reshape(NY, NX, NZ)
+    fields = [f.reshape(NY, NX, NZ) for f in fields]
+    edges, levels = density_targets(dev)
+    dgrid = density_grid(xtt)
+    das = [xtt.GriddedArray(f, ("y", "x", "zc"), name=nm)
+           for f, nm in zip(fields, ("T", "S", "u", "v"))]
+    sb = xtt.GriddedArray(sig_b, ("y", "x", "zo"), name="sigma")
+    sc = xtt.GriddedArray(sig_c, ("y", "x", "zc"), name="sigma")
+    idx = torch.randperm(cols, generator=gen, device=dev)[:SAMPLE]
+    for name, call in density_calls(dgrid, das, sb, sc, edges, levels).items():
+        outs, launches[name], ms, peak_gb = run_counted(name, call, build, dev)
+        log(f"phase 6: {name} launched {launches[name]} time(s); first call {ms:.1f} ms (host "
+            f"clock); peak device memory {peak_gb:.2f} GB")
+        check_density_outputs(check, name, outs, sig_b, sig_c, fields, edges, levels, idx)
+        del outs
+        torch.cuda.empty_cache()
+    check_density_small(gen, dev, xtt)
+    torch.cuda.synchronize()
+
+    # ---- phase 7: timing of the density kernels -------------------------
+    from xgcm_tpu_torch.ops.kernels import conservative as kg
+    from xgcm_tpu_torch.ops.kernels import interp_linear as kc
+
+    s_b, s_c, s_phis, s_edges, s_levels = dens_sample
+    s_cols = s_b.shape[0]
+    pairs = {
+        "conservative": (lambda: kg.conservative_rebin(s_b, s_phis[0], s_edges),
+                         lambda: kg._conservative_plain(s_b, s_phis[0], s_edges)),
+        "conservative_multi": (lambda: kg.conservative_rebin_multi(s_b, s_phis, s_edges),
+                               lambda: kg._conservative_multi_plain(s_b, s_phis, s_edges)),
+        "interp_linear_multi": (lambda: kc.interp_linear_multi(s_c, s_phis, s_levels, True),
+                                lambda: kc._fused_multi_ref_torch(s_c, s_phis, s_levels, True)),
+    }
+    for name, (kernel_fn, plain_fn) in pairs.items():
+        times[name] = time_pair(kernel_fn, plain_fn, reps=5)
+        log(f"time {name} {s_cols} cols x {NZ} levels, V = {1 if name == 'conservative' else NV}"
+            f" f32: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms [{card}]")
+    bounds["conservative"] = conservative_bound(s_cols, 1)
+    bounds["conservative_multi"] = conservative_bound(s_cols, NV)
+    bounds["interp_linear_multi"] = linear_bound(s_cols, NV)
+    b2, c2 = sig_b.reshape(cols, NZ + 1), sig_c.reshape(cols, NZ)
+    f2 = [f.reshape(cols, NZ) for f in fields]
+    face = {
+        "conservative": (lambda: kg.conservative_rebin(b2, f2[0], edges),
+                         conservative_bound(cols, 1)),
+        "conservative_multi": (lambda: kg.conservative_rebin_multi(b2, f2, edges),
+                               conservative_bound(cols, NV)),
+        "interp_linear_multi": (lambda: kc.interp_linear_multi(c2, f2, levels, True),
+                                linear_bound(cols, NV)),
+        "interp_linear (V = 1, same inputs)": (lambda: kc.interp_linear(c2, f2[0], levels, True),
+                                               linear_bound(cols, 1)),
+    }
+    for name, (kernel_fn, (b_ms, b_by)) in face.items():
+        k_ms, _ = time_pair(kernel_fn, reps=3)
+        log(f"time {name} main path {cols} cols x {NZ} levels f32: kernel {k_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), plain not measured (needs the dense "
+            f"(cols, m, n) tensors) [{card}]")
+    for name, call in density_calls(dgrid, das, sb, sc, edges, levels).items():
+        a_ms, _ = time_pair(call, reps=3)
+        log(f"time Grid API call of {name} {NY}x{NX}x{NZ} f32: {a_ms:.4f} ms [{card}]")
 
     report = {"kernels": [
         {
@@ -368,6 +766,9 @@ def main(argv=None) -> int:
             "max_abs_err": check.max_err[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            "library_ms": library.get(name),
         }
         for name in KERNELS
     ]}

@@ -158,3 +158,70 @@ def test_port_never_imports_jax_or_the_jax_package():
         if mod.split(".")[0] in ("jax", "jaxlib", "xgcm_tpu")
     ]
     assert offenders == []
+
+
+@pytest.fixture
+def no_card_no_request(monkeypatch):
+    """A host without a CUDA card where the caller has not asked for the
+    CPU."""
+    import torch
+
+    from xgcm_tpu_torch.core import device
+
+    monkeypatch.setattr(device, "_default", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_host_data_without_card_or_cpu_request_raises(no_card_no_request):
+    with pytest.raises(RuntimeError, match="set_default_device"):
+        xtt.GriddedArray(np.ones(3), ("x",))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        xtt.Dataset(coords={"x": ("x", np.arange(3.0))}, data_vars={"a": ("x", [1.0, 2, 3])})
+    with pytest.raises(RuntimeError, match="set_default_device"):
+        xtt.from_numpy_dataset(sgrid_2d_ds())
+    # coordinates stay host numpy and need no device
+    ds = xtt.Dataset(coords={"z": ("z", np.arange(3.0) + 0.5), "zo": ("zo", np.arange(4.0))})
+    assert isinstance(ds.coords["z"].data, np.ndarray)
+    # numpy targets of transform raise too, never running on the CPU
+    grid = xtt.Grid(ds, coords={"Z": {"center": "z", "outer": "zo"}}, periodic=False,
+                    autoparse_metadata=False)
+    with pytest.raises(RuntimeError, match="set_default_device"):
+        grid.transform(xtt.GriddedArray(np.ones(3), ("z",)), "Z", np.array([0.5, 1.5]))
+
+
+def test_cpu_request_puts_host_data_on_cpu(no_card_no_request):
+    import torch
+
+    a = xtt.GriddedArray(np.ones(3), ("x",), device="cpu")
+    assert a.device == torch.device("cpu")
+    ds = xtt.from_numpy_dataset(sgrid_2d_ds(), device="cpu")
+    assert ds["grid"].data.device == torch.device("cpu")
+    xtt.set_default_device("cpu")
+    assert xtt.get_default_device() == torch.device("cpu")
+    b = xtt.GriddedArray([[1.0, 2.0]], ("y", "x"))
+    assert isinstance(b.data, torch.Tensor) and b.device == torch.device("cpu")
+    ds = xtt.Dataset(coords={"x": ("x", np.arange(3.0))}, data_vars={"a": ("x", [1.0, 2, 3])})
+    assert ds["a"].data.device == torch.device("cpu")
+    assert isinstance(ds.coords["x"].data, np.ndarray)
+    xtt.set_default_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        xtt.get_default_device()
+
+
+def test_tensor_keeps_its_device(no_card_no_request):
+    import torch
+
+    x = torch.arange(6.0).reshape(2, 3)
+    a = xtt.GriddedArray(x, ("y", "x"))
+    assert a.data is x
+    # host operands join the tensor's device
+    assert torch.equal((a + np.ones(3)).data, x + 1)
+    ds = xtt.Dataset(coords={"x": ("x", np.arange(3.0))}, data_vars={"a": a})
+    assert ds["a"].data is x
+    ds = xtt.Dataset(coords={"zc": ("zc", np.arange(3.0) + 0.5), "zo": ("zo", np.arange(4.0))})
+    grid = xtt.Grid(ds, coords={"Z": {"center": "zc", "outer": "zo"}}, periodic=False,
+                    autoparse_metadata=False)
+    q = xtt.GriddedArray(torch.tensor([1.0, 4.0, 0.0]), ("zc",), name="q")
+    out = grid.transform(q, "Z", torch.tensor([0.0, 1.0, 2.5, 4.0]), method="conservative")
+    assert out.device == torch.device("cpu")
+    assert torch.allclose(out.data, torch.tensor([1.0, 4.0, 0.0], dtype=torch.float64))

@@ -4,8 +4,15 @@ On any host: the kernel module imports with no ``nvcc`` and no card, a
 wrapper given CPU tensors runs its plain version and launches nothing, and
 a wrapper given a tensor off the CPU on a host without CUDA raises instead
 of falling back.  On a CUDA card (tests marked ``cuda``, skipped elsewhere):
-each kernel against its plain version on the same inputs, and the analysis
-step on the card against the same step on the CPU.
+each kernel against its plain version on the same inputs, the multi-variable
+kernels against single calls, and the analysis step and the density-space
+transforms on the card against the same calls on the CPU.
+
+Tolerances on the card: float32 kernels A and B within rtol = atol = 1e-6
+of the plain version, C and F too (nvcc contracts a*b+c into FMAs); G and
+H within n * 2**-24 * max column sum of |phi|, a bound on the rounding of
+n float32 additions in another order; bfloat16 within 1e-2 (one bf16 unit
+in the last place, since both round once from float32).
 """
 
 import os
@@ -17,14 +24,21 @@ import numpy as np
 import pytest
 import torch
 
+import xgcm_tpu_torch as xtt
 from tests.torch_parity import assert_close
+from xgcm_tpu_torch.core import device as port_device
 from xgcm_tpu_torch.entry import step
 from xgcm_tpu_torch.ops.kernels import build
+from xgcm_tpu_torch.ops.kernels import conservative as kg
 from xgcm_tpu_torch.ops.kernels.cgrid_diagnostics import (
     cgrid_diagnostics,
     cgrid_diagnostics_plain,
 )
-from xgcm_tpu_torch.ops.kernels.interp_linear import _fused_ref_torch, interp_linear
+from xgcm_tpu_torch.ops.kernels.interp_linear import (
+    _fused_ref_torch,
+    interp_linear,
+    interp_linear_multi,
+)
 from xgcm_tpu_torch.ops.kernels.shift import shift, shift_plain
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -79,6 +93,16 @@ def test_wrappers_take_plain_version_on_cpu(no_library):
     ph = torch.as_tensor(rng.rand(5, 6))
     t = torch.linspace(0, 1, 4, dtype=th.dtype)
     assert torch.equal(interp_linear(th, ph, t), _fused_ref_torch(th, ph, t))
+    for a, b in zip(interp_linear_multi(th, [ph, 2 * ph], t),
+                    (_fused_ref_torch(th, ph, t), _fused_ref_torch(th, 2 * ph, t))):
+        assert torch.equal(a, b)
+    tb = torch.sort(torch.as_tensor(rng.rand(5, 7)), -1).values
+    e = torch.linspace(0, 1, 4, dtype=th.dtype)
+    assert torch.equal(kg.conservative_rebin(tb, ph, e).nan_to_num(),
+                       kg._conservative_plain(tb, ph, e).nan_to_num())
+    for a, b in zip(kg.conservative_rebin_multi(tb, [ph, 2 * ph], e),
+                    kg._conservative_multi_plain(tb, [ph, 2 * ph], e)):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
     # the step on CPU tensors runs end to end without the library
     step(u.float(), v.float(), torch.sort(torch.rand(4, 6, 3), -1).values,
          torch.linspace(0.2, 0.8, 3))
@@ -95,6 +119,24 @@ def test_wrappers_raise_off_cpu_without_cuda():
         cgrid_diagnostics(x, x, torch.empty(6, device="meta"), torch.empty(4, device="meta"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         interp_linear(x, x, t)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        interp_linear_multi(x, [x, x], t)
+    xb = torch.empty((4, 7), device="meta")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        kg.conservative_rebin(xb, x, t)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        kg.conservative_rebin_multi(xb, [x, x], t)
+
+
+def test_outputs_are_checked():
+    new = build.outputs(None, 2, (3, 4), torch.float32, torch.device("cpu"))
+    assert [tuple(o.shape) for o in new] == [(3, 4), (3, 4)]
+    given = [torch.empty((4, 3)).T, torch.empty((4, 3)).T]
+    assert build.outputs(given, 2, (3, 4), torch.float32, torch.device("cpu")) == given
+    for bad in ([torch.empty((3, 4))], [given[0], torch.empty((3, 4))],
+                [torch.empty((3, 4), dtype=torch.float64)] * 2):
+        with pytest.raises(ValueError, match="one layout"):
+            build.outputs(bad, 2, (3, 4), torch.float32, torch.device("cpu"))
 
 
 def test_shift_rejects_unknown_arguments():
@@ -110,9 +152,12 @@ def test_shift_rejects_unknown_arguments():
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
+    """The card, with host data going to it for the test's duration (the
+    parity harness asks for the CPU for the CPU tests)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(port_device, "_default", torch.device("cuda"))
     return torch.device("cuda")
 
 
@@ -213,3 +258,143 @@ def test_step_on_card_matches_cpu(cuda):
     ref = step(*(a.cpu() for a in (u, v, theta, targets)))
     for a, b in zip(out, ref):
         assert_close(a.cpu(), b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_column", [False, True])
+@pytest.mark.parametrize("mask_edges", [False, True])
+def test_interp_multi_kernel_matches_singles(cuda, mask_edges, per_column, dtype, nv):
+    th, ph = _cuda_columns(cuda, 1000, 20, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    phis = [ph.to(dtype)] + [torch.rand(ph.shape, generator=g, device=cuda).to(dtype)
+                             for _ in range(nv - 1)]
+    th = th.to(dtype)
+    if per_column:
+        t = torch.sort(torch.rand((1000, 9), device=cuda) * 36 - 3, -1).values.to(dtype)
+    else:
+        t = torch.linspace(-3, 33, 13, device=cuda).to(dtype)
+    tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 else dict(rtol=1e-6, atol=1e-6)
+    build.reset_launch_counts()
+    multi = interp_linear_multi(th, phis, t, mask_edges)
+    multi_T = interp_linear_multi(th.T.contiguous().T, phis, t, mask_edges, out_T=True)
+    assert build.launch_counts()["interp_linear_multi"] == 2
+    for o, oT, p in zip(multi, multi_T, phis):
+        single = interp_linear(th, p, t, mask_edges)
+        assert_close(o.float(), single.float(), **tol)
+        assert_close(oT.T.float(), single.float(), **tol)
+        assert_close(o.float(), _fused_ref_torch(th, p, t, mask_edges).float(), **tol)
+
+
+def _cuda_cells(cuda, cols, n, seed):
+    """Raw bounds (cols, n + 1) and cells (cols, n) on the card: monotone
+    columns, some descending, NaN bound tails and heads, degenerate cells
+    (some on a bin edge), all-NaN columns, NaN data."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    th = torch.cumsum(torch.rand((cols, n + 1), generator=g, device=cuda) + 0.05, -1)
+    ph = torch.rand((cols, n), generator=g, device=cuda) * 2 - 0.5
+    th[: cols // 10] = th[: cols // 10].flip(-1)
+    th[cols // 10: cols // 5, n - 3:] = float("nan")
+    th[cols // 5: cols // 4, :2] = float("nan")
+    th[cols // 4: cols // 4 + 20, 5] = th[cols // 4: cols // 4 + 20, 4]
+    th[cols // 4: cols // 4 + 5, 4:6] = 4.0  # degenerate, exactly on an edge
+    th[-3:] = float("nan")
+    ph[cols // 2: cols // 2 + 30, 3] = float("nan")
+    return th, ph
+
+
+def _rebin_tol(ph):
+    """n * 2**-24 * the largest column sum of |phi| (see the module doc)."""
+    return ph.shape[-1] * 2.0**-24 * float(ph.float().abs().nansum(-1).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reassociate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conservative_kernel_matches_plain(cuda, dtype, reassociate):
+    th, ph = _cuda_cells(cuda, 1000, 20, seed=7)
+    th, ph = th.to(dtype), ph.to(dtype)
+    edges = torch.linspace(-1.0, 25.0, 27, device=cuda).to(dtype)  # 4.0 is an edge
+    build.reset_launch_counts()
+    k = kg.conservative_rebin(th, ph, edges, reassociate)
+    kT = kg.conservative_rebin(th.T.contiguous().T, ph.T.contiguous().T, edges, reassociate,
+                               out_T=True)
+    assert build.launch_counts()["conservative"] == 2
+    p = kg._conservative_plain(th, ph, edges)
+    tol = (dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16
+           else dict(rtol=0, atol=2 * _rebin_tol(ph)))
+    assert_close(k.float(), p.float(), **tol)
+    assert_close(kT.T.float(), p.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conservative_multi_kernel_matches_singles(cuda, dtype, nv):
+    th, ph = _cuda_cells(cuda, 1000, 20, seed=8)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    phis = [ph] + [torch.rand(ph.shape, generator=g, device=cuda) for _ in range(nv - 1)]
+    phis[-1][100:140, 7] = float("nan")  # variable-specific NaN data
+    th, phis = th.to(dtype), [p.to(dtype) for p in phis]
+    edges = torch.linspace(-1.0, 25.0, 27, device=cuda).to(dtype)
+    build.reset_launch_counts()
+    multi = kg.conservative_rebin_multi(th, phis, edges)
+    assert build.launch_counts()["conservative_multi"] == 1
+    plain = kg._conservative_multi_plain(th, phis, edges)
+    for o, p, pl in zip(multi, phis, plain):
+        tol = (dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16
+               else dict(rtol=0, atol=_rebin_tol(p)))
+        assert_close(o.float(), kg.conservative_rebin(th, p, edges).float(), **tol)
+        assert_close(o.float(), pl.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_conservative_kernel_gradient_matches_plain(cuda):
+    th, ph = _cuda_cells(cuda, 64, 10, seed=10)
+    th, ph = th.nan_to_num(3.0), ph.nan_to_num(0.5)
+    edges = torch.linspace(-1.0, 14.0, 6, device=cuda)
+    ins_k = [a.clone().requires_grad_() for a in (th, ph)]
+    ins_p = [a.clone().requires_grad_() for a in (th, ph)]
+    kg.conservative_rebin(*ins_k, edges).nan_to_num().sum().backward()
+    kg._conservative_plain(*ins_p, edges).nan_to_num().sum().backward()
+    for a, b in zip(ins_k, ins_p):
+        assert_close(a.grad, b.grad, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_density_transforms_on_card_match_cpu(cuda):
+    """Grid.transform (conservative) and Grid.transform_multi (linear and
+    conservative, V = 4) on the card launch G, F and H and agree with the
+    same calls on the CPU."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    ny, nx, nz = 24, 40, 12
+    sig_b = 24.0 + torch.cumsum(torch.rand((ny, nx, nz + 1), generator=g, device=cuda), -1)
+    sig_b[0, :5, nz - 3:] = float("nan")
+    sig_c = 0.5 * (sig_b[..., :-1] + sig_b[..., 1:])
+    fields = [torch.rand((ny, nx, nz), generator=g, device=cuda) for _ in range(4)]
+    bins = torch.linspace(24.0, 34.0, 11, device=cuda)
+    levels = torch.linspace(24.5, 33.0, 9, device=cuda)
+
+    def run(dev):
+        ds = xtt.Dataset(coords={"zc": ("zc", np.arange(nz) + 0.5), "zo": ("zo", np.arange(nz + 1.0))})
+        grid = xtt.Grid(ds, coords={"Z": {"center": "zc", "outer": "zo"}}, periodic=False,
+                        autoparse_metadata=False)
+        das = [xtt.GriddedArray(f.to(dev), ("y", "x", "zc"), name=f"v{i}")
+               for i, f in enumerate(fields)]
+        sb = xtt.GriddedArray(sig_b.to(dev), ("y", "x", "zo"), name="sigma")
+        sc = xtt.GriddedArray(sig_c.to(dev), ("y", "x", "zc"), name="sigma")
+        build.reset_launch_counts()
+        out = [grid.transform(das[0], "Z", bins.to(dev), target_data=sb, method="conservative")]
+        out += grid.transform_multi(das, "Z", bins.to(dev), target_data=sb, method="conservative")
+        out += grid.transform_multi(das, "Z", levels.to(dev), target_data=sc)
+        return out, build.launch_counts()
+
+    on_card, counts = run(cuda)
+    assert counts["conservative"] == 1 and counts["conservative_multi"] == 1
+    assert counts["interp_linear_multi"] == 1
+    on_cpu, cpu_counts = run(torch.device("cpu"))
+    assert all(v == 0 for v in cpu_counts.values())
+    for a, b in zip(on_card, on_cpu):
+        assert a.dims == b.dims and a.data.device.type == "cuda"
+        assert_close(a.data.cpu(), b.data, rtol=1e-5, atol=2e-5)

@@ -86,7 +86,7 @@ def test_grid_ops_bitwise(op, bc, dtype):
             assert_bitwise(r_t, r_j)
 
 
-@pytest.mark.parametrize("op", ("diff", "min", "max"))
+@pytest.mark.parametrize("op", ("diff", "interp", "min", "max"))
 @pytest.mark.parametrize("bc", ("periodic", "fill", "extend"))
 def test_int_input_takes_generic_engine(op, bc):
     g_j, g_t, shape = _grids(np.float64)
@@ -96,6 +96,8 @@ def test_int_input_takes_generic_engine(op, bc):
         r_j = getattr(g_j, op)(xgcm_tpu.GriddedArray(x, dims), axis, boundary=bc)
         r_t = getattr(g_t, op)(xtt.GriddedArray(torch.as_tensor(x), dims), axis, boundary=bc)
         assert r_t.dims == r_j.dims
+        # integer interp is float64, as in JAX with x64; the rest stay int64
+        assert r_t.dtype == (torch.float64 if op == "interp" else torch.int64)
         assert_bitwise(r_t, r_j)
 
 

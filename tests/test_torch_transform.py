@@ -65,13 +65,6 @@ def test_transform_cases_match(name, dtype):
     np.testing.assert_allclose(got[keep], expected[keep], rtol=1e-5, atol=1e-6)
 
 
-def test_conservative_not_ported_yet():
-    case = CASES["conservative_depth_depth"]
-    g_t, da_t, t_t, kw_t = _case_inputs(case, np.float64, xtt, tensor=True)
-    with pytest.raises(NotImplementedError):
-        g_t.transform(da_t, "Z", t_t, **kw_t)
-
-
 def _columns(cols, n, dtype, seed):
     """Monotone columns with NaN heads/tails, NaN data, descending and
     all-NaN columns and duplicate knots; phi random."""

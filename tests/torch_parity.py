@@ -1,8 +1,12 @@
 """Parity harness for the PyTorch port: run a JAX callable and its port's
 counterpart on the same numpy inputs and compare the results as numpy.
 
-``conftest.py`` already keeps JAX on the CPU (with x64).  Torch runs one
-thread per process, since the suite runs several workers at once.
+``conftest.py`` already keeps JAX on the CPU (with x64).  The port puts host
+data on the CUDA card unless asked for the CPU; the parity tests ask for it
+here, once, for every test file that imports this module.  Tests that need
+the card build their inputs there as tensors, which keep their device.
+Torch runs one thread per process, since the suite runs several workers at
+once.
 """
 
 from __future__ import annotations
@@ -10,6 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import xgcm_tpu_torch
+
+xgcm_tpu_torch.set_default_device("cpu")
 torch.set_num_threads(1)
 
 

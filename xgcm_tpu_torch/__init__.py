@@ -1,9 +1,11 @@
 """xgcm_tpu_torch: the PyTorch and CUDA port of xgcm_tpu, for NVIDIA Hopper.
 
 Finite-volume analysis of staggered (Arakawa) grid datasets: position-aware
-``interp``/``diff``/``min``/``max`` and the linear/log vertical transform, on
-torch tensors.  On a CUDA tensor the hot paths run hand-written CUDA kernels
-(``csrc/``); on a CPU tensor they run the kernels' plain PyTorch versions.
+``interp``/``diff``/``min``/``max`` and the linear, log and conservative
+vertical transforms, on torch tensors.  On a CUDA tensor the hot paths run
+hand-written CUDA kernels (``csrc/``); on a CPU tensor they run the kernels'
+plain PyTorch versions.  Host data that enters the package goes to the CUDA
+card unless the caller asks for the CPU (:func:`set_default_device`).
 The JAX package ``xgcm_tpu`` is the reference this package is tested
 against; this package imports neither it nor JAX.
 """
@@ -11,6 +13,7 @@ against; this package imports neither it nor JAX.
 from .core.axis import Axis
 from .core.dataarray import GriddedArray
 from .core.dataset import Dataset, from_numpy_dataset
+from .core.device import get_default_device, set_default_device
 from .core.grid import Grid
 from .core.grid_ufunc import GridUFunc, apply_as_grid_ufunc, as_grid_ufunc
 from .core.signature import GridUFuncSignature
@@ -25,4 +28,6 @@ __all__ = [
     "apply_as_grid_ufunc",
     "as_grid_ufunc",
     "from_numpy_dataset",
+    "get_default_device",
+    "set_default_device",
 ]

@@ -5,10 +5,13 @@ tuple of dimension *names*, keeping the ``(data, dims, name, attrs)``
 contract of :class:`xgcm_tpu.core.dataarray.GriddedArray`.  It is not a
 pytree; PyTorch runs eagerly and needs none.
 
-Coordinate variables of a :class:`~xgcm_tpu_torch.core.dataset.Dataset`
-stay numpy arrays, so the container also holds an ``np.ndarray`` as given;
-arithmetic and every grid operation turn numpy data into a CPU tensor with
-:func:`as_tensor`.  Operations run on the device of their input tensor.
+Host data given to the container (numpy arrays, lists, scalars) becomes a
+tensor on the default device, the CUDA card unless the caller asks for the
+CPU (:mod:`xgcm_tpu_torch.core.device`).  Coordinate variables of a
+:class:`~xgcm_tpu_torch.core.dataset.Dataset` stay host numpy arrays
+(:meth:`GriddedArray.on_host`); an operation on one turns it into a tensor
+with :func:`as_tensor`.  Operations run on the device of their input
+tensor, and host operands join that device.
 """
 
 from __future__ import annotations
@@ -18,15 +21,18 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 __all__ = ["GriddedArray", "as_tensor"]
 
 
-def as_tensor(x) -> torch.Tensor:
-    """``x`` as a tensor: tensors pass through, numpy data becomes a CPU
-    tensor sharing its memory where numpy allows it."""
+def as_tensor(x, device=None) -> torch.Tensor:
+    """``x`` as a tensor.  A tensor keeps its device unless ``device`` is
+    given; host data goes to ``device``, else to the default device (on
+    the CPU it shares numpy's memory where numpy allows it)."""
     if isinstance(x, torch.Tensor):
-        return x
-    return torch.as_tensor(np.asarray(x))
+        return x if device is None else x.to(device)
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device))
 
 
 class GriddedArray:
@@ -35,8 +41,8 @@ class GriddedArray:
     Parameters
     ----------
     data : torch.Tensor, numpy array, or nested sequence
-        The underlying array.  Tensors and numpy arrays are kept as given;
-        anything else goes through ``np.asarray``.
+        The underlying array.  A tensor is kept as given; host data becomes
+        a tensor on ``device``, else on the default device.
     dims : sequence of str
         One name per axis of ``data``.
     name : str, optional
@@ -45,6 +51,9 @@ class GriddedArray:
         Arbitrary metadata (used by the COMODO/SGRID parsers).
     device : torch.device or str, optional
         When given, the data becomes a tensor on this device.
+
+    :meth:`on_host` builds one that keeps host numpy data, as the
+    coordinate variables of a Dataset are kept.
     """
 
     __slots__ = ("data", "dims", "name", "attrs")
@@ -59,10 +68,19 @@ class GriddedArray:
     ):
         if isinstance(data, GriddedArray):
             data = data.data
-        if device is not None:
-            data = torch.as_tensor(as_tensor(data), device=device)
-        elif not isinstance(data, (torch.Tensor, np.ndarray)):
+        self._set(as_tensor(data, device), dims, name, attrs)
+
+    @classmethod
+    def on_host(cls, data, dims, name=None, attrs=None) -> "GriddedArray":
+        """A GriddedArray holding ``data`` as a host numpy array (a tensor
+        stays a tensor)."""
+        obj = cls.__new__(cls)
+        if not isinstance(data, torch.Tensor):
             data = np.asarray(data)
+        obj._set(data, dims, name, attrs)
+        return obj
+
+    def _set(self, data, dims, name, attrs) -> None:
         dims = tuple(dims)
         if len(dims) != data.ndim:
             raise ValueError(
@@ -121,9 +139,13 @@ class GriddedArray:
 
     # -- label-preserving ops ---------------------------------------------
     def with_data(self, data, dims: Optional[Sequence[str]] = None) -> "GriddedArray":
-        return GriddedArray(
-            data, self.dims if dims is None else dims, name=self.name, attrs=self.attrs
-        )
+        return self._like(data, self.dims if dims is None else dims, self.name)
+
+    def _like(self, data, dims, name) -> "GriddedArray":
+        """A GriddedArray of ``data`` with this one's attrs; host numpy
+        data taken from this array stays on the host."""
+        make = GriddedArray.on_host if isinstance(data, np.ndarray) else GriddedArray
+        return make(data, dims, name=name, attrs=self.attrs)
 
     def rename_dims(self, mapping: Mapping[str, str]) -> "GriddedArray":
         return self.with_data(
@@ -131,7 +153,7 @@ class GriddedArray:
         )
 
     def rename(self, name: Optional[str]) -> "GriddedArray":
-        return GriddedArray(self.data, self.dims, name=name, attrs=self.attrs)
+        return self._like(self.data, self.dims, name)
 
     def isel(self, indexers: Mapping[str, Any]) -> "GriddedArray":
         """Positional selection by dimension name (slices keep the dim,
@@ -143,9 +165,7 @@ class GriddedArray:
             if isinstance(idx, int):
                 dropped.append(dim)
         out_dims = [d for d in self.dims if d not in dropped]
-        return GriddedArray(
-            self.data[tuple(index)], out_dims, name=self.name, attrs=self.attrs
-        )
+        return self._like(self.data[tuple(index)], out_dims, self.name)
 
     def transpose(self, *dims: str) -> "GriddedArray":
         if set(dims) != set(self.dims):
@@ -176,10 +196,12 @@ class GriddedArray:
         if isinstance(other, GriddedArray):
             a, b, dims = _broadcast_align(self, other)
             return GriddedArray(op(a, b), dims, name=self.name)
-        return self.with_data(op(as_tensor(self.data), _operand(other)))
+        a = as_tensor(self.data)
+        return self.with_data(op(a, _operand(other, a.device)))
 
     def _rbinop(self, other, op):
-        return self.with_data(op(_operand(other), as_tensor(self.data)))
+        a = as_tensor(self.data)
+        return self.with_data(op(_operand(other, a.device), a))
 
     def __add__(self, other):
         return self._binop(other, torch.add)
@@ -252,8 +274,9 @@ class GriddedArray:
         if isinstance(cond, GriddedArray):
             a, c, dims = _broadcast_align(self, cond)
         else:
-            a, c, dims = as_tensor(self.data), _operand(cond), self.dims
-        o = _operand(other.data if isinstance(other, GriddedArray) else other)
+            a = as_tensor(self.data)
+            c, dims = _operand(cond, a.device), self.dims
+        o = _operand(other.data if isinstance(other, GriddedArray) else other, a.device)
         if not isinstance(o, torch.Tensor):
             o = torch.tensor(o, dtype=torch.result_type(a, o), device=a.device)
         return GriddedArray(
@@ -298,33 +321,35 @@ class GriddedArray:
         )
 
 
-def _operand(x):
+def _operand(x, device):
     """A scalar stays a Python number (so torch keeps the tensor's dtype,
-    like a weakly typed JAX scalar); arrays become tensors."""
+    like a weakly typed JAX scalar); a tensor stays as it is; host arrays
+    become tensors on ``device``, the other operand's."""
     if isinstance(x, (int, float, bool, complex, torch.Tensor)):
         return x
-    return as_tensor(x)
+    return as_tensor(x, device)
 
 
 def _broadcast_align(a: GriddedArray, b: GriddedArray):
-    """Align two GriddedArrays by dimension name for broadcasting.
+    """Align two GriddedArrays by dimension name for broadcasting; host
+    data joins the device of the operand that holds a tensor.
 
     Output dims are a's dims followed by b's extra dims (order of first
     appearance, matching xarray's broadcasting convention).
     """
     out_dims = list(a.dims) + [d for d in b.dims if d not in a.dims]
-    return _expand_to(a, out_dims), _expand_to(b, out_dims), tuple(out_dims)
+    device = next((x.data.device for x in (a, b) if isinstance(x.data, torch.Tensor)), None)
+    return (_expand_to(a, out_dims, device), _expand_to(b, out_dims, device),
+            tuple(out_dims))
 
 
-def _expand_to(x: GriddedArray, out_dims: Sequence[str]) -> torch.Tensor:
+def _expand_to(x: GriddedArray, out_dims: Sequence[str], device=None) -> torch.Tensor:
     """Reshape x.data so its dims line up with out_dims (size-1 for missing)."""
-    shape = [1] * len(out_dims)
     for d in x.dims:
         if d not in out_dims:
             raise ValueError(f"dim {d} missing from target dims {out_dims}")
+    data = x.data if isinstance(x.data, torch.Tensor) else as_tensor(x.data, device)
     ordered = [d for d in out_dims if d in x.dims]
-    x = x.transpose(*ordered)
-    for i, d in enumerate(out_dims):
-        if d in x.dims:
-            shape[i] = x.sizes[d]
-    return x.data.reshape(shape)
+    data = data.permute([x.dims.index(d) for d in ordered])
+    shape = [x.sizes[d] if d in x.dims else 1 for d in out_dims]
+    return data.reshape(shape)

@@ -2,8 +2,9 @@
 
 Holds dimension sizes, coordinate variables with their COMODO/SGRID/CF
 attrs, and data variables, as :class:`xgcm_tpu.core.dataset.Dataset` does.
-Coordinates stay numpy arrays: they are grid metadata, read on the host by
-the parsers.  Data variables may hold torch tensors.
+Coordinates stay host numpy arrays: they are grid metadata, read on the host
+by the parsers.  Data variables are tensors; host data given for one goes to
+the default device (:mod:`xgcm_tpu_torch.core.device`).
 """
 
 from __future__ import annotations
@@ -11,7 +12,6 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
-import torch
 
 from .dataarray import GriddedArray
 
@@ -70,10 +70,11 @@ class Dataset:
             attrs = v[2] if len(v) == 3 else None
             if isinstance(dims, str):
                 dims = (dims,)
-            return GriddedArray(data, dims, name=name, attrs=attrs)
+            make = GriddedArray.on_host if is_coord else GriddedArray
+            return make(data, dims, name=name, attrs=attrs)
         arr = np.asarray(v)
         if is_coord and arr.ndim == 1:
-            return GriddedArray(arr, (name,), name=name)
+            return GriddedArray.on_host(arr, (name,), name=name)
         raise TypeError(
             f"Cannot interpret variable {name!r}: pass a GriddedArray or a "
             f"(dims, data) tuple"
@@ -204,18 +205,19 @@ class Dataset:
 def from_numpy_dataset(ds, device=None) -> Dataset:
     """The port's Dataset built from another package's Dataset (such as
     ``xgcm_tpu.Dataset``) by duck typing: its dims, attrs, and the dims,
-    data and attrs of every variable.  Coordinates stay numpy; data
-    variables become tensors on ``device``."""
+    data and attrs of every variable.  Coordinates stay host numpy; data
+    variables become tensors on ``device``, else on the default device."""
 
-    def _var(v, as_tensor):
-        data = np.asarray(v.data)
-        if as_tensor:
-            data = torch.as_tensor(data, device=device)
-        return GriddedArray(data, v.dims, name=v.name, attrs=v.attrs)
+    def _coord(v):
+        return GriddedArray.on_host(np.asarray(v.data), v.dims, name=v.name, attrs=v.attrs)
+
+    def _var(v):
+        return GriddedArray(np.asarray(v.data), v.dims, name=v.name, attrs=v.attrs,
+                            device=device)
 
     return Dataset(
-        coords={k: _var(v, False) for k, v in ds.coords.items()},
-        data_vars={k: _var(v, True) for k, v in ds.data_vars.items()},
+        coords={k: _coord(v) for k, v in ds.coords.items()},
+        data_vars={k: _var(v) for k, v in ds.data_vars.items()},
         dims=dict(ds.dims),
         attrs=dict(ds.attrs),
     )

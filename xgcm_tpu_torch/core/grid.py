@@ -2,11 +2,11 @@
 
 The counterpart of :class:`xgcm_tpu.core.grid.Grid` on torch tensors.  This
 slice ports construction (with metadata auto-parsing), the 1D grid-ufunc
-dispatch, the fused shift fast path, and ``interp``/``diff``/``min``/
-``max``/``transform``.  Face connections, metrics, cumsum, the
-metric-weighted calculus, vector ops, ``transform_multi`` and the xarray
-bridge are not ported yet; asking for them raises ``NotImplementedError``
-(ROADMAP Queue 1).
+dispatch, the fused shift fast path, ``interp``/``diff``/``min``/``max``,
+and ``transform``/``transform_multi``.  Face connections, metrics, cumsum,
+the metric-weighted calculus, vector ops and the xarray bridge are not
+ported yet; asking for them raises ``NotImplementedError`` (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -16,9 +16,12 @@ import warnings
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Union
 
+import numpy as np
+import torch
+
 from . import gridops
 from .axis import Axis
-from .dataarray import GriddedArray, as_tensor
+from .dataarray import GriddedArray
 from .dataset import Dataset
 from .grid_ufunc import (
     GridUFunc,
@@ -290,7 +293,9 @@ class Grid:
             # face-less grids: basic BCs ignore the partner, so a vector
             # component behaves exactly like a scalar
             ((_, array),) = array.items()
-        if not as_tensor(array.data).is_floating_point():
+        data = array.data
+        if not (data.is_floating_point() if isinstance(data, torch.Tensor)
+                else np.issubdtype(data.dtype, np.floating)):
             return None  # integer and bool inputs take the generic engine
         if set(call_kwargs) - {"boundary", "fill_value"}:
             return None
@@ -384,10 +389,34 @@ class Grid:
         return self._1d_grid_ufunc_dispatch("max", da, axis, **kwargs)
 
     def transform(self, da, axis, target, **kwargs):
-        """Vertical coordinate transform, ``method="linear"`` or ``"log"``."""
+        """Convert ``da`` to new 1D coordinates along ``axis``.
+
+        ``method="linear"`` (the default; ``target`` holds the new cell
+        centres, ``target_data`` must be monotonic per column and is
+        flipped where it decreases), ``"log"`` (linear in log space) or
+        ``"conservative"`` (``target`` holds cell bounds; the column
+        integral is conserved; the axis needs ``outer`` coordinates, and
+        ``target_data`` not on them is interpolated there with a warning).
+        ``target_data`` defaults to the axis coordinate of ``da``.  Other
+        keywords: ``target_dim``, ``mask_edges``, ``bypass_checks``,
+        ``suffix`` and, for the conservative method, ``reassociate`` (see
+        :func:`xgcm_tpu_torch.ops.transform.transform`).  On CUDA
+        tensors the remap runs the linear (C) or conservative (G) kernel.
+        """
         from ..ops.transform import transform
 
         return transform(self, axis, da, target, **kwargs)
+
+    def transform_multi(self, das, axis, target, **kwargs):
+        """Transform several arrays onto the same target coordinate:
+        exactly ``[self.transform(da, axis, target, **kwargs) for da in
+        das]``.  On the card, 2 to 8 float32/bfloat16 arrays of equal dims
+        share one kernel pass (F for linear/log, H for conservative) that
+        reads ``target_data`` once; everywhere else the list is built by
+        that loop."""
+        from ..ops.transform import transform_multi
+
+        return transform_multi(self, axis, das, target, **kwargs)
 
 
 def _select_grid_ufunc(funcname, signature: GridUFuncSignature, module, **kwargs):

@@ -1,6 +1,7 @@
 // Shared helpers of the xgcm_tpu_torch kernels: dtype codes (kept equal to
 // DTYPE_CODES in ops/kernels/build.py), loads that widen 16-bit types to
-// float, and stores that round once.
+// float, stores that round once, and the variable set of the multi-variable
+// kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,6 +41,32 @@ template <> __device__ __forceinline__ float round_to<__half>(double x) {
 }
 template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(double x) {
   return __bfloat162float(__double2bfloat16(x));
+}
+
+// Up to kMaxVars variables that share one geometry (kernels C/F and G/H):
+// each variable's input pointer and (column, level) strides, and its output,
+// the outputs sharing one layout.  The fixed size of these arrays bounds V;
+// callers route more variables to a loop of single calls.
+constexpr int kMaxVars = 8;
+
+template <typename T> struct VarSet {
+  const T* in[kMaxVars];
+  long long cs[kMaxVars];
+  long long ks[kMaxVars];
+  T* out[kMaxVars];
+};
+
+template <typename T>
+VarSet<T> make_varset(int nv, const void* const* in, const long long* cs, const long long* ks,
+                      void* const* out) {
+  VarSet<T> s = {};
+  for (int v = 0; v < nv && v < kMaxVars; ++v) {
+    s.in[v] = static_cast<const T*>(in[v]);
+    s.cs[v] = cs[v];
+    s.ks[v] = ks[v];
+    s.out[v] = static_cast<T*>(out[v]);
+  }
+  return s;
 }
 
 inline unsigned int blocks_for(long long work, int threads) {

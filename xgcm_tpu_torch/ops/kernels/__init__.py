@@ -8,11 +8,18 @@ wrapper                     CUDA source                     replaces (Pallas, JA
 ``cgrid_diagnostics.``      ``csrc/cgrid_diagnostics.cu``   ``pallas_stencils.``
 ``cgrid_diagnostics``                                       ``fused_cgrid_diagnostics``
 ``interp_linear.``          ``csrc/interp_linear.cu``       ``pallas_transform.``
-``interp_linear``                                           ``interp_linear_fused_T``
+``interp_linear`` (C)                                       ``interp_linear_fused_T``
+``interp_linear.``          ``csrc/interp_linear.cu``       ``pallas_transform.``
+``interp_linear_multi`` (F)                                 ``interp_linear_fused_multi_T``
+``conservative.``           ``csrc/conservative.cu``        ``pallas_transform.``
+``conservative_rebin`` (G)                                  ``conservative_fused_T``
+``conservative.``           ``csrc/conservative.cu``        ``pallas_transform.``
+``conservative_rebin_multi``                                ``conservative_fused_multi_T``
+(H)
 ==========================  ==============================  ===============================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel (building the library at first use) or raises.
 """
 
-from . import build, cgrid_diagnostics, interp_linear, shift  # noqa: F401
+from . import build, cgrid_diagnostics, conservative, interp_linear, shift  # noqa: F401

@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources under ``xgcm_tpu_torch/csrc/`` have a plain ``extern "C"``
-interface and include no PyTorch header, so ``nvcc`` compiles all of them
-into one shared library in seconds:
+interface and include no PyTorch header, so ``nvcc`` compiles them in
+seconds, one process per source, all started together, and links the
+objects into one shared library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/libxgcm_tpu_torch_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -c -o <source>.o csrc/<source>.cu                     # each source at once
+    nvcc -shared -o build/kernels/libxgcm_tpu_torch_kernels-<hash>.so *.o
 
 The library is built at first use into ``build/kernels/`` beside the
 package, keyed on a hash of the sources and flags, and loaded with
@@ -40,16 +42,27 @@ __all__ = [
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("shift.cu", "cgrid_diagnostics.cu", "interp_linear.cu")
+SOURCES = ("shift.cu", "cgrid_diagnostics.cu", "interp_linear.cu", "conservative.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 # Kernel launches since the last reset, one plain integer per kernel.  A
 # wrapper adds one where it launches its kernel, and nowhere else.
-LAUNCHES = {"shift": 0, "cgrid_diagnostics": 0, "interp_linear": 0}
+LAUNCHES = {
+    "shift": 0,
+    "cgrid_diagnostics": 0,
+    "interp_linear": 0,
+    "interp_linear_multi": 0,
+    "conservative": 0,
+    "conservative_multi": 0,
+}
+
+# The multi-variable kernels take at most this many variables: the size of
+# the fixed pointer array of VarSet in csrc/common.cuh.
+MAX_VARS = 8
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {
@@ -63,6 +76,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
+_PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
+_LP = ctypes.POINTER(ctypes.c_longlong)  # host array of strides
 
 # argtypes of every C entry point (pointers and the stream as c_void_p, so
 # ctypes never truncates them to 32 bits)
@@ -78,6 +93,20 @@ SIGNATURES = {
         _P, _P, _P, _P, _I, _I, _L, _L, _L,
         _L, _L, _L, _L, _L, _L, _L, _L,
         _I, _I, _P,
+    ),
+    # theta, phis, ph_cs, ph_ks, outs, target(f32), nv, th_dtype, ph_dtype,
+    # cols, n, m, th_cs, th_ks, t_cs, t_ms, o_cs, o_ms, mask_edges,
+    # check_flip, stream
+    "xt_interp_linear_multi": (
+        _P, _PP, _LP, _LP, _PP, _P, _I, _I, _I,
+        _L, _L, _L, _L, _L, _L, _L, _L, _L,
+        _I, _I, _P,
+    ),
+    # theta, phis, ph_cs, ph_ks, outs, edges(f32), nv, th_dtype, ph_dtype,
+    # cols, n, nb, th_cs, th_ks, o_cs, o_js, reassociate, stream
+    "xt_conservative": (
+        _P, _PP, _LP, _LP, _PP, _P, _I, _I, _I,
+        _L, _L, _L, _L, _L, _L, _L, _I, _P,
     ),
 }
 
@@ -133,22 +162,27 @@ def build_library(verbose: bool = False) -> pathlib.Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-I", str(CSRC_DIR), "-o", tmp, *(str(CSRC_DIR / s) for s in SOURCES)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+    flags = [*NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-I", str(CSRC_DIR)]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src + ".o") for src in SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *flags, "-c", "-o", obj, str(CSRC_DIR / src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)
+        ]
+        reports = [proc.communicate()[0] for proc in procs]
+        for src, proc, report in zip(SOURCES, procs, reports):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{report}")
+        so = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
         if verbose:
-            print(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            print("".join(reports))
+        os.replace(so, out)
     return out
 
 
@@ -184,3 +218,56 @@ def check_status(name: str, status: int) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def outputs(outs, count, shape, dtype, device):
+    """The ``count`` output tensors of a launch: ``outs`` checked (each
+    ``shape`` in ``dtype`` on ``device``, all of one layout, since the
+    kernels take one set of output strides), or new contiguous tensors."""
+    if outs is None:
+        return [torch.empty(shape, dtype=dtype, device=device) for _ in range(count)]
+    if len(outs) != count or any(
+        o.shape != shape or o.dtype != dtype or o.device != device
+        or o.stride() != outs[0].stride() for o in outs
+    ):
+        raise ValueError(f"out must be {count} tensor(s) {shape} of one layout, {dtype}, "
+                         f"on {device}")
+    return list(outs)
+
+
+def var_set(inputs, outputs):
+    """Host arrays describing a VarSet (``csrc/common.cuh``): the device
+    pointer, column stride and level stride of each 2-D input, and the
+    device pointer of each output.  The arrays must outlive the call."""
+    nv = len(inputs)
+    return (
+        (ctypes.c_void_p * nv)(*(x.data_ptr() for x in inputs)),
+        (ctypes.c_longlong * nv)(*(x.stride(0) for x in inputs)),
+        (ctypes.c_longlong * nv)(*(x.stride(1) for x in inputs)),
+        (ctypes.c_void_p * nv)(*(o.data_ptr() for o in outputs)),
+    )
+
+
+class PlainBackward(torch.autograd.Function):
+    """Forward: ``launch(*tensors)``, a kernel.  Backward: autograd through
+    ``plain(*tensors)``, the kernel's plain version; the JAX package's
+    custom-VJP rules do the same with their jnp twins, and no TPU kernel
+    has a backward kernel.  Either callable returns a tensor or a tuple of
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, *tensors):
+        ctx.plain = plain
+        ctx.save_for_backward(*tensors)
+        return launch(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [x.detach().requires_grad_(need)
+                  for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        wanted = [x for x in inputs if x.requires_grad]
+        with torch.enable_grad():
+            ref = ctx.plain(*inputs)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            found = iter(torch.autograd.grad(refs, wanted, grads, allow_unused=True))
+        return (None, None, *(next(found) if x.requires_grad else None for x in inputs))

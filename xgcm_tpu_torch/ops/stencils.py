@@ -23,9 +23,19 @@ __all__ = [
 # lower-index neighbour, ``hi`` the higher-index one; the engine kernels
 # below and the fused shift path (ops/fused.py and the shift kernel's plain
 # version) phrase their operands in those terms.
+def _interp(lo, hi):
+    """(hi + lo) * 0.5.  An integer or bool sum is halved in float64, as
+    JAX (x64) promotes it against the weakly typed 0.5; torch would take
+    its default dtype, float32.  Float sums keep their dtype."""
+    s = hi + lo
+    if not (s.is_floating_point() or s.is_complex()):
+        s = s.to(torch.float64)
+    return s * 0.5
+
+
 PAIR_OPS = {
     "diff": lambda lo, hi: hi - lo,
-    "interp": lambda lo, hi: (hi + lo) * 0.5,
+    "interp": _interp,
     "min": torch.minimum,
     "max": torch.maximum,
 }
