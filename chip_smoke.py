@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of xgcm_tpu_torch on one CUDA card.
 
-Builds the six hand-written CUDA kernels from ``xgcm_tpu_torch/csrc``, holds
-each against its plain PyTorch version at the shapes of the main paths, and
-drives two paths at the width of one LLC4320 face (4320 x 4320 columns, 50
-levels, float32):
+Builds the eight hand-written CUDA kernels from ``xgcm_tpu_torch/csrc``,
+holds each against its plain PyTorch version at the shapes of the main
+paths, and drives four paths at the width of LLC4320 (4320 x 4320 columns a
+face, 50 levels, float32):
 
 * the C-grid analysis step (``xgcm_tpu_torch.entry.step``, kernels A and C)
-  and the fused diagnostics (kernel B), onto 36 theta targets;
+  and the fused diagnostics (kernel B), onto 36 theta targets, at one face;
+* the vorticity benchmark configuration at one face: the single-pass
+  vorticity kernel D, beside the Grid API's two shifts and kernel B;
 * the density-space analysis through ``Grid.transform`` and
-  ``Grid.transform_multi``: one field into 35 density classes
+  ``Grid.transform_multi`` at one face: one field into 35 density classes
   (conservative, kernel G), four fields (T, S, u, v) into the same classes
-  (kernel H), and the four onto 36 density levels (linear, kernel F).
+  (kernel H), and the four onto 36 density levels (linear, kernel F);
+* the face analysis of a whole LLC4320 level (13 faces, ``grids.llc_grid``):
+  cross-face tracer gradients, vorticity and divergence with the vector
+  halo rules, and the 2-D vector interpolation, eight launches of the
+  per-face shift kernel E, each result equal to the generic halo engine's.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; the script checks that every kernel of the path launched and that
@@ -31,12 +37,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import itertools
 import json
 import pathlib
 import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -44,6 +52,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 
 NY = NX = 4320  # one LLC4320 face
+N_FACES = 13  # an LLC grid's faces
 NZ = 50
 N_TARGETS = 36
 N_EDGES = 36  # 35 density classes
@@ -65,6 +74,8 @@ KERNELS = {
         "xgcm_tpu_torch/csrc/conservative.cu", "xgcm_tpu/ops/pallas_transform.py:731"),
     "conservative_multi": (
         "xgcm_tpu_torch/csrc/conservative.cu", "xgcm_tpu/ops/pallas_transform.py:873"),
+    "vorticity": ("xgcm_tpu_torch/csrc/vorticity.cu", "xgcm_tpu/ops/pallas_stencils.py:111"),
+    "face_shift": ("xgcm_tpu_torch/csrc/face_shift.cu", "xgcm_tpu/ops/pallas_stencils.py:415"),
 }
 
 
@@ -571,12 +582,144 @@ def check_density_small(gen, dev, xtt):
     log("phase 6: the density calls on a 40 x 72 x 12 grid on the card == on the CPU")
 
 
+def check_vorticity(check, u, v, ix, iy):
+    """Kernel D at one face in f32 (rtol = atol = 1e-6: nvcc contracts the
+    products into FMAs), and in bf16 within one bf16 ulp of the plain
+    version, which computes in f32 and rounds once, as the kernel does."""
+    from xgcm_tpu_torch.ops.kernels import vorticity as k
+
+    check.compare("vorticity", "f32", k.vorticity(u, v, ix, iy),
+                  k.vorticity_plain(u, v, ix, iy), **TOL_F32)
+    bf = [a.to(torch.bfloat16) for a in (u, v, ix, iy)]
+    within_bf16(check, "vorticity", "bf16", k.vorticity(*bf), k.vorticity_plain(*bf), 0.0)
+    log("phase 3: vorticity kernel matches its plain version (f32 1e-6, 1 ulp bf16)")
+
+
+def edge_nonfinite(a):
+    """NaN, +inf and -inf on a few face-edge cells of (..., 13, n, n) data,
+    in place: the halo sources of the X-left, Y-right, X-right and Y-left
+    edges of faces 0, 6, 9 and 12."""
+    n = a.shape[-1]
+    a[..., 0, 5, 0] = float("nan")
+    a[..., 6, n - 1, 9] = float("inf")
+    a[..., 9, 3, n - 1] = -float("inf")
+    a[..., 12, 0, n - 3] = float("nan")
+    return a
+
+
+def compare_by_face(check, name, label, got, want, **tol):
+    """``check.compare`` one face at a time (a few hundred MB of float64
+    at once at LLC4320)."""
+    for f, (a, b) in enumerate(zip(got.unbind(-3), want.unbind(-3))):
+        check.compare(name, f"{label}/face {f}", a, b, **tol)
+
+
+def check_face_shift(check, gen, dev):
+    """Kernel E: every op x direction x axis, f32 and bf16 bit for bit
+    against the plain version (bf16 against the plain version computed in
+    f32 and rounded once, as the kernel does), at one LLC4320 level (13 x
+    4320^2) and at a small batched shape (2, 13, 48, 48), with NaN and
+    infinities on face edges and in the halo."""
+    from xgcm_tpu_torch.ops.kernels import face_shift as k
+
+    for shape in ((N_FACES, NY, NX), (2, N_FACES, 48, 48)):
+        x = edge_nonfinite(torch.randn(shape, generator=gen, device=dev))
+        halo = torch.randn(shape[:-1], generator=gen, device=dev)
+        halo[..., 2, 11], halo[..., 5, 0] = float("nan"), float("inf")
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, hd = x.to(dtype), halo.to(dtype)
+            for op, direction, axis_is_x in itertools.product(
+                    ("diff", "interp", "min", "max"), ("left", "right"), (True, False)):
+                label = f"{tuple(shape)}/{dtype}/{op}/{direction}/{'x' if axis_is_x else 'y'}"
+                got = k.face_shift(xd, hd, op, direction, axis_is_x)
+                want = k.face_shift_plain(xd.float(), hd.float(), op, direction,
+                                          axis_is_x).to(dtype)
+                if got.dtype != dtype:
+                    raise AssertionError(f"face_shift [{label}]: returned {got.dtype}")
+                compare_by_face(check, "face_shift", label, got, want, exact=True)
+                del got, want
+        del x, halo, xd, hd
+    torch.cuda.synchronize()
+    log("phase 3: face_shift kernel matches its plain version (bitwise f32 and bf16, "
+        "13 x 4320^2 and (2, 13, 48, 48))")
+
+
+def face_analysis(grid, xtt, th, u, v, lead=()):
+    """The face analysis of examples/llc_analysis.py and docs/llc_example.md
+    on theta (face, y, x), u (face, y, xl) and v (face, yl, x): each call a
+    length-preserving pair, so each runs kernel E once (eight launches)."""
+    t = xtt.GriddedArray(th, lead + ("face", "y", "x"), name="theta")
+    gu = xtt.GriddedArray(u, lead + ("face", "y", "xl"), name="u")
+    gv = xtt.GriddedArray(v, lead + ("face", "yl", "x"), name="v")
+    out = {
+        "dtheta_dx": grid.diff(t, "X"),  # (face, y, xl)
+        "dtheta_dy": grid.diff(t, "Y"),  # (face, yl, x)
+        # vorticity on (face, yl, xl)
+        "zeta": grid.diff({"X": gv}, "X", other_component={"Y": gu})
+        - grid.diff({"Y": gu}, "Y", other_component={"X": gv}),
+        # divergence on (face, y, x)
+        "div": grid.diff({"X": gu}, "X", other_component={"Y": gv})
+        + grid.diff({"Y": gv}, "Y", other_component={"X": gu}),
+    }
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        vec = grid.interp_2d_vector({"X": gu, "Y": gv}, to="center")
+    out["u_c"], out["v_c"] = vec["X"], vec["Y"]
+    return out
+
+
+def face_generic(grid, xtt, th, u, v):
+    """The same results from the generic engine: the GridUFuncs of
+    ``core/gridops`` called directly, whose halos come from
+    ``core.padding._pad_face_connections``; one callable per result."""
+    from xgcm_tpu_torch.core import gridops as go
+
+    t = xtt.GriddedArray(th, ("face", "y", "x"), name="theta")
+    gu = xtt.GriddedArray(u, ("face", "y", "xl"), name="u")
+    gv = xtt.GriddedArray(v, ("face", "yl", "x"), name="v")
+
+    def vec(fn, a, axis, partner, p_axis):
+        return fn(grid, {axis: a}, axis=[(axis,)], other_component={p_axis: partner})
+
+    return {
+        "dtheta_dx": lambda: go.diff_center_to_left(grid, t, axis=[("X",)]),
+        "dtheta_dy": lambda: go.diff_center_to_left(grid, t, axis=[("Y",)]),
+        "zeta": lambda: vec(go.diff_center_to_left, gv, "X", gu, "Y")
+        - vec(go.diff_center_to_left, gu, "Y", gv, "X"),
+        "div": lambda: vec(go.diff_left_to_center, gu, "X", gv, "Y")
+        + vec(go.diff_left_to_center, gv, "Y", gu, "X"),
+        "u_c": lambda: vec(go.interp_left_to_center, gu, "X", gv, "Y"),
+        "v_c": lambda: vec(go.interp_left_to_center, gv, "Y", gu, "X"),
+    }
+
+
+def check_face_small(gen, dev, xtt):
+    """The face analysis on a small LLC grid (n = 48) with a leading batch
+    dim of 3 on the card against the same calls on the CPU, value for
+    value."""
+    _, grid = xtt.grids.llc_grid(n=48)
+    th, u, v = (edge_nonfinite(torch.randn((3, N_FACES, 48, 48), generator=gen, device=dev))
+                for _ in range(3))
+    on_card = face_analysis(grid, xtt, th, u, v, lead=("time",))
+    on_cpu = face_analysis(grid, xtt, th.cpu(), u.cpu(), v.cpu(), lead=("time",))
+    for name, a in on_card.items():
+        b = on_cpu[name]
+        if a.dims != b.dims or a.data.device.type != dev.type:
+            raise AssertionError(f"face analysis on the card: {name} has wrong dims or device")
+        a = a.data.cpu()
+        if not (torch.equal(torch.isnan(a), torch.isnan(b.data))
+                and torch.equal(a.nan_to_num(), b.data.nan_to_num())):
+            raise AssertionError(f"face analysis on the card: {name} differs from the CPU")
+    log("phase 8: the face analysis on a (3, 13, 48, 48) LLC grid on the card == on the CPU")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
 
     # ---- phase 1: device ------------------------------------------------
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: torch.cuda.is_available() is false")
     xtt = import_port()
@@ -586,7 +729,9 @@ def main(argv=None) -> int:
     from xgcm_tpu_torch.ops.kernels.cgrid_diagnostics import (
         cgrid_diagnostics, cgrid_diagnostics_plain)
     from xgcm_tpu_torch.ops.kernels.interp_linear import _fused_ref_torch, interp_linear
+    from xgcm_tpu_torch.ops.kernels.face_shift import face_shift, face_shift_plain
     from xgcm_tpu_torch.ops.kernels.shift import shift, shift_plain
+    from xgcm_tpu_torch.ops.kernels.vorticity import vorticity, vorticity_plain
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -615,6 +760,8 @@ def main(argv=None) -> int:
     ix = torch.rand((NX,), generator=gen, device=dev) + 0.5
     iy = torch.rand((NY,), generator=gen, device=dev) + 0.5
     check_diagnostics(check, u, v, ix, iy)
+    check_vorticity(check, u, v, ix, iy)
+    check_face_shift(check, gen, dev)
     th_c, ph_c = columns(gen, dev, 512 * 512, NZ)
     t_c = torch.linspace(-1.0, 27.0, N_TARGETS, device=dev)
     check_interp(check, gen, dev, th_c, ph_c, t_c)
@@ -688,7 +835,54 @@ def main(argv=None) -> int:
     diag_ms, _ = time_pair(lambda: diagnostics_op(grid, gu, gv))
     log(f"time step {NY}x{NX}x{NZ} -> {N_TARGETS} f32: {step_ms:.4f} ms; "
         f"cgrid_diagnostics op: {diag_ms:.4f} ms [{card}]")
-    del theta, th_main, ke_cols, zeta, div, ke_on_theta, d_zeta, d_div, d_ke, gu, gv
+
+    # the vorticity benchmark configuration at one face: kernel D, driven
+    # as the JAX package's bench drives fused_vorticity, beside the Grid
+    # API's two shifts and the arithmetic, and kernel B
+    def api_vorticity():
+        dvdx = grid.diff(xtt.GriddedArray(v, ("yg", "xc")), "X")
+        dudy = grid.diff(xtt.GriddedArray(u, ("yc", "xg")), "Y")
+        return (dvdx * xtt.GriddedArray(ix, ("xg",))
+                - dudy * xtt.GriddedArray(iy, ("yg",))).data
+
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    zeta_d = vorticity(u, v, ix, iy)
+    torch.cuda.synchronize()
+    launches["vorticity"] = build.launch_counts()["vorticity"]
+    if launches["vorticity"] != 1:
+        raise AssertionError(f"the vorticity configuration launched D "
+                             f"{launches['vorticity']} times")
+    if zeta_d.shape != (NY, NX) or not bool(torch.isfinite(zeta_d).all()):
+        raise AssertionError("kernel D: wrong shape or non-finite vorticity")
+    check.compare("vorticity", "config/Grid API", zeta_d, api_vorticity(), **TOL_F32)
+    check.compare("vorticity", "config/kernel B", zeta_d, cgrid_diagnostics(u, v, ix, iy)[0],
+                  **TOL_F32)
+    times["vorticity"] = time_pair(lambda: vorticity(u, v, ix, iy),
+                                   lambda: vorticity_plain(u, v, ix, iy))
+    api_ms, _ = time_pair(api_vorticity)
+    log(f"time vorticity {NY}x{NX} f32: kernel D {times['vorticity'][0]:.4f} ms, plain "
+        f"{times['vorticity'][1]:.4f} ms, Grid API (two shift launches + arithmetic) "
+        f"{api_ms:.4f} ms, kernel B (zeta, div, ke) {times['cgrid_diagnostics'][0]:.4f} ms "
+        f"[{card}]")
+    # u, v and zeta, with inv_dx and inv_dy; about 5 operations per point
+    bounds["vorticity"] = bound((3 * n_face + NX + NY) * 4, 5 * n_face)
+
+    # kernel E on one LLC4320 level against its plain version, the concat
+    # formulation
+    xf = torch.randn((N_FACES, NY, NX), generator=gen, device=dev)
+    hf = torch.randn((N_FACES, NX), generator=gen, device=dev)
+    for op, direction, axis_is_x in (("diff", "left", True), ("diff", "left", False),
+                                     ("interp", "right", True)):
+        k_ms, p_ms = time_pair(lambda: face_shift(xf, hf, op, direction, axis_is_x),
+                               lambda: face_shift_plain(xf, hf, op, direction, axis_is_x))
+        log(f"time face_shift {op}/{direction}/{'x' if axis_is_x else 'y'} {N_FACES}x{NY}x{NX} "
+            f"f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]")
+        times.setdefault("face_shift", (k_ms, p_ms))
+    # x in, out, and the halo; one operation per point
+    bounds["face_shift"] = bound((2 * xf.numel() + hf.numel()) * 4, xf.numel())
+    del theta, th_main, ke_cols, zeta, div, ke_on_theta, d_zeta, d_div, d_ke, gu, gv, zeta_d
+    del xf, hf
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -756,6 +950,58 @@ def main(argv=None) -> int:
         a_ms, _ = time_pair(call, reps=3)
         log(f"time Grid API call of {name} {NY}x{NX}x{NZ} f32: {a_ms:.4f} ms [{card}]")
 
+    # the loops' last callables hold the density inputs in their closures
+    del s_b, s_c, s_phis, s_edges, s_levels, dens_sample, b2, c2, f2, face
+    del sig_b, sig_c, fields, das, sb, sc, call, kernel_fn, plain_fn, pairs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: the face analysis of one LLC4320 level ---------------
+    _, lgrid = xtt.grids.llc_grid(n=NX)
+    th, lu, lv = (edge_nonfinite(torch.randn((N_FACES, NY, NX), generator=gen, device=dev))
+                  for _ in range(3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = face_analysis(lgrid, xtt, th, lu, lv)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches["face_shift"] = counts["face_shift"]
+    log(f"phase 8: face analysis launches {counts}; first call {first_ms:.1f} ms (host clock); "
+        f"peak device memory {peak_gb:.2f} GB")
+    if counts["face_shift"] != 8 or counts["shift"] != 0:
+        raise AssertionError(f"the face analysis launched face_shift {counts['face_shift']} "
+                             f"and shift {counts['shift']} times, expected 8 and 0")
+    generic = face_generic(lgrid, xtt, th, lu, lv)
+    for name, got in results.items():
+        want = generic[name]()
+        if got.dims != want.dims or got.shape != (N_FACES, NY, NX):
+            raise AssertionError(f"face analysis {name}: {got.dims} {got.shape}, generic "
+                                 f"{want.dims} {want.shape}")
+        compare_by_face(check, "face_shift", f"main/{name} vs generic", got.data, want.data,
+                        exact=True)
+        del want
+    nan_cells = {name: int(torch.isnan(r.data).sum()) for name, r in results.items()}
+    del results
+    torch.cuda.empty_cache()
+    log(f"phase 8: all six results == the generic halo engine, value for value (NaN cells "
+        f"{nan_cells})")
+    one = xtt.GriddedArray(torch.ones((N_FACES, NY, NX), device=dev), ("face", "y", "x"))
+    for axis in ("X", "Y"):
+        if int(torch.count_nonzero(lgrid.diff(one, axis, boundary="extend").data)) != 0:
+            raise AssertionError(f"the {axis} gradient of a constant is not 0 on every face")
+    del one
+    log("phase 8: the gradient of a constant with boundary='extend' is 0 on every face")
+    check_face_small(gen, dev, xtt)
+    face_ms, _ = time_pair(lambda: face_analysis(lgrid, xtt, th, lu, lv), reps=3)
+    log(f"time face analysis {N_FACES}x{NY}x{NX} f32 (8 face_shift launches, strip "
+        f"gathers, the vorticity and divergence arithmetic): {face_ms:.4f} ms [{card}]")
+    del th, lu, lv
+    torch.cuda.synchronize()
+
     report = {"kernels": [
         {
             "name": name,
@@ -773,6 +1019,7 @@ def main(argv=None) -> int:
         for name in KERNELS
     ]}
     torch.cuda.synchronize()
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to report")
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -122,8 +122,12 @@ def test_grid_construction_errors_match():
 
 def test_unported_grid_features_raise():
     ds = xtt.from_numpy_dataset(comodo_ds())
-    with pytest.raises(NotImplementedError):
-        xtt.Grid(ds, face_connections={"face": {0: {"X": (None, None)}}})
+    # face connections are ported: a face dim the dataset lacks raises the
+    # JAX package's ValueError
+    fc = {"face": {0: {"X": (None, None)}}}
+    for grid_cls, data in ((xgcm_tpu.Grid, comodo_ds()), (xtt.Grid, ds)):
+        with pytest.raises(ValueError, match="Face dimension face does not exist"):
+            grid_cls(data, face_connections=fc)
     with pytest.raises(NotImplementedError):
         xtt.Grid(ds, metrics={("X",): ["XC"]})
 

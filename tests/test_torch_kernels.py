@@ -5,10 +5,16 @@ wrapper given CPU tensors runs its plain version and launches nothing, and
 a wrapper given a tensor off the CPU on a host without CUDA raises instead
 of falling back.  On a CUDA card (tests marked ``cuda``, skipped elsewhere):
 each kernel against its plain version on the same inputs, the multi-variable
-kernels against single calls, and the analysis step and the density-space
-transforms on the card against the same calls on the CPU.
+kernels against single calls, gradients through the kernels against the
+plain versions', and the analysis step, the density-space transforms and the
+face analysis of an LLC grid on the card against the same calls on the CPU.
+On the CPU, the plain versions of kernels D and E also against the Pallas
+kernels they replace (interpret mode) and the JAX formulations.  The card's
+machine has no JAX, so JAX is imported inside the CPU tests only.
 
-Tolerances on the card: float32 kernels A and B within rtol = atol = 1e-6
+Tolerances on the card: kernels A and E equal to the plain version bit for
+bit (16-bit types against the plain version computed in float32 and rounded
+once, as the kernels do); float32 kernels B and D within rtol = atol = 1e-6
 of the plain version, C and F too (nvcc contracts a*b+c into FMAs); G and
 H within n * 2**-24 * max column sum of |phi|, a bound on the rounding of
 n float32 additions in another order; bfloat16 within 1e-2 (one bf16 unit
@@ -39,7 +45,9 @@ from xgcm_tpu_torch.ops.kernels.interp_linear import (
     interp_linear,
     interp_linear_multi,
 )
+from xgcm_tpu_torch.ops.kernels.face_shift import face_shift, face_shift_plain
 from xgcm_tpu_torch.ops.kernels.shift import shift, shift_plain
+from xgcm_tpu_torch.ops.kernels.vorticity import vorticity, vorticity_plain
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -103,6 +111,11 @@ def test_wrappers_take_plain_version_on_cpu(no_library):
     for a, b in zip(kg.conservative_rebin_multi(tb, [ph, 2 * ph], e),
                     kg._conservative_multi_plain(tb, [ph, 2 * ph], e)):
         assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    x4 = torch.as_tensor(rng.randn(2, 3, 5, 5))
+    h = torch.as_tensor(rng.randn(2, 3, 5))
+    assert torch.equal(face_shift(x4, h, "max", "right", False),
+                       face_shift_plain(x4, h, "max", "right", False))
+    assert torch.equal(vorticity(u, v, ix, iy), vorticity_plain(u, v, ix, iy))
     # the step on CPU tensors runs end to end without the library
     step(u.float(), v.float(), torch.sort(torch.rand(4, 6, 3), -1).values,
          torch.linspace(0.2, 0.8, 3))
@@ -126,6 +139,10 @@ def test_wrappers_raise_off_cpu_without_cuda():
         kg.conservative_rebin(xb, x, t)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         kg.conservative_rebin_multi(xb, [x, x], t)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        face_shift(x, torch.empty((4,), device="meta"), "diff", "left", True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vorticity(x, x, torch.empty(6, device="meta"), torch.empty(4, device="meta"))
 
 
 def test_outputs_are_checked():
@@ -144,6 +161,97 @@ def test_shift_rejects_unknown_arguments():
         shift(torch.zeros(3), 0, "mean", "left", "periodic")
     with pytest.raises(ValueError):
         shift(torch.zeros(3), 0, "diff", "up", "periodic")
+    with pytest.raises(ValueError, match="unsupported face shift"):
+        face_shift(torch.zeros(2, 3, 3), torch.zeros(2, 3), "mean", "left", True)
+    with pytest.raises(ValueError, match="halo must be"):
+        face_shift(torch.zeros(2, 3, 4), torch.zeros(2, 4), "diff", "left", True)
+
+
+VORTICITY_SHAPES = [(16, 128), (64, 256), (40, 384)]  # tests/test_pallas.py
+
+
+def _vorticity_inputs(shape, seed=0):
+    ny, nx = shape
+    rng = np.random.RandomState(seed)
+    return (rng.rand(ny, nx).astype(np.float32), rng.rand(ny, nx).astype(np.float32),
+            (rng.rand(nx) + 1).astype(np.float32), (rng.rand(ny) + 1).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", VORTICITY_SHAPES)
+def test_vorticity_plain_matches_pallas_and_roll(shape):
+    """Kernel D's plain version against ``fused_vorticity`` in interpret
+    mode (atol 1e-6, as tests/test_pallas.py), and bit for bit against the
+    JAX roll formulation of the same operations."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from xgcm_tpu.ops import pallas_stencils as ps
+
+    u, v, ix, iy = _vorticity_inputs(shape)
+    got = vorticity_plain(*(torch.as_tensor(a) for a in (u, v, ix, iy)))
+    with pltpu.force_tpu_interpret_mode():
+        pallas = ps.fused_vorticity(*(jnp.asarray(a) for a in (u, v, ix, iy)), tile_rows=8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=0, atol=1e-6)
+    uj, vj, ixj, iyj = (jnp.asarray(a) for a in (u, v, ix, iy))
+    roll = (vj - jnp.roll(vj, 1, 1)) * ixj[None, :] - (uj - jnp.roll(uj, 1, 0)) * iyj[:, None]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(roll))
+
+
+def test_vorticity_plain_bf16_matches_pallas():
+    """bf16 inputs: both compute in float32 and round once."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from xgcm_tpu.ops import pallas_stencils as ps
+
+    args = [jnp.asarray(a, jnp.bfloat16) for a in _vorticity_inputs((32, 256), seed=7)]
+    with pltpu.force_tpu_interpret_mode():
+        pallas = ps.fused_vorticity(*args, tile_rows=8)
+    got = vorticity_plain(*(torch.as_tensor(np.asarray(a, np.float32)).to(torch.bfloat16)
+                            for a in args))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(pallas, np.float32),
+                               rtol=2**-8, atol=0)
+
+
+def _jax_face_ref(x, halo, op, direction, axis_is_x):
+    """tests/test_pallas.py's roll + edge-set formulation."""
+    import jax.numpy as jnp
+
+    roll_axis = -1 if axis_is_x else -2
+    n = x.shape[roll_axis]
+    edge = 0 if direction == "left" else n - 1
+    nb = jnp.roll(x, 1 if direction == "left" else -1, axis=roll_axis)
+    nb = nb.at[..., :, edge].set(halo) if axis_is_x else nb.at[..., edge, :].set(halo)
+    lo, hi = (nb, x) if direction == "left" else (x, nb)
+    return {"diff": hi - lo, "interp": (hi + lo) * 0.5, "min": jnp.minimum(lo, hi),
+            "max": jnp.maximum(lo, hi)}[op]
+
+
+@pytest.mark.parametrize("shape", [(6, 32, 256), (3, 8, 128)])
+@pytest.mark.parametrize("axis_is_x", [True, False])
+@pytest.mark.parametrize("direction", ["left", "right"])
+@pytest.mark.parametrize("op", ["diff", "interp", "min", "max"])
+def test_face_shift_plain_matches_pallas_and_jax(op, direction, axis_is_x, shape):
+    """Kernel E's plain version against ``face_shift_op`` in interpret mode
+    (atol 1e-6, as tests/test_pallas.py), and bit for bit against the JAX
+    roll + edge-set formulation."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from xgcm_tpu.ops import pallas_stencils as ps
+
+    nf, ny, nx = shape
+    rng = np.random.RandomState(11)
+    x = rng.rand(nf, ny, nx).astype(np.float32)
+    halo = rng.rand(nf, ny if axis_is_x else nx).astype(np.float32)
+    got = face_shift_plain(torch.as_tensor(x), torch.as_tensor(halo), op, direction, axis_is_x)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = ps.face_shift_op(jnp.asarray(x), jnp.asarray(halo), op, direction, axis_is_x,
+                                  tile_rows=8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=0, atol=1e-6)
+    ref = _jax_face_ref(jnp.asarray(x), jnp.asarray(halo), op, direction, axis_is_x)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 # ---------------------------------------------------------------------------
@@ -398,3 +506,140 @@ def test_density_transforms_on_card_match_cpu(cuda):
     for a, b in zip(on_card, on_cpu):
         assert a.dims == b.dims and a.data.device.type == "cuda"
         assert_close(a.data.cpu(), b.data, rtol=1e-5, atol=2e-5)
+
+
+def _plain_in_f32(fn, dtype, *tensors, **kwargs):
+    """The plain version as the kernels compute: 16-bit inputs in float32,
+    rounded once; float32 and float64 as they are."""
+    if dtype in (torch.float16, torch.bfloat16):
+        return fn(*(t.float() for t in tensors), **kwargs).to(dtype)
+    return fn(*tensors, **kwargs)
+
+
+def _assert_same_values(k, p):
+    assert k.dtype == p.dtype and k.shape == p.shape
+    assert torch.equal(torch.isnan(k), torch.isnan(p))
+    assert torch.equal(k.nan_to_num(), p.nan_to_num())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("axis_is_x", [True, False])
+@pytest.mark.parametrize("direction", ["left", "right"])
+@pytest.mark.parametrize("op", ["diff", "interp", "min", "max"])
+def test_face_shift_kernel_matches_plain(cuda, op, direction, axis_is_x, dtype):
+    """Batch dims (2, 6) in front of 37 x 37 faces; NaN and +-inf on the
+    face edges and in the halo."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((2, 6, 37, 37), generator=g, device=cuda)
+    x[0, 1, 0, 5], x[1, 4, 36, 0], x[0, 3, 7, 36] = float("nan"), float("inf"), -float("inf")
+    halo = torch.randn((2, 6, 37), generator=g, device=cuda)
+    halo[1, 2, 3], halo[0, 5, 36] = float("nan"), float("inf")
+    x, halo = x.to(dtype), halo.to(dtype)
+    build.reset_launch_counts()
+    k = face_shift(x, halo, op, direction, axis_is_x)
+    assert build.launch_counts()["face_shift"] == 1
+    p = _plain_in_f32(face_shift_plain, dtype, x, halo, op=op, direction=direction,
+                      axis_is_x=axis_is_x)
+    _assert_same_values(k, p)
+
+
+@pytest.mark.cuda
+def test_face_shift_kernel_gradient_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn((6, 16, 16), generator=g, device=cuda)
+    halo = torch.randn((6, 16), generator=g, device=cuda)
+    ins_k = [a.clone().requires_grad_() for a in (x, halo)]
+    ins_p = [a.clone().requires_grad_() for a in (x, halo)]
+    (face_shift(*ins_k, "interp", "right", False) ** 2).sum().backward()
+    (face_shift_plain(*ins_p, "interp", "right", False) ** 2).sum().backward()
+    for a, b in zip(ins_k, ins_p):
+        assert_close(a.grad, b.grad, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+def test_vorticity_kernel_matches_plain(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(14)
+    u, v = (torch.randn((67, 129), generator=g, device=cuda).to(dtype) for _ in range(2))
+    u[3, 0] = float("nan")
+    ix = torch.rand(129, generator=g, device=cuda).to(dtype) + 0.5
+    iy = torch.rand(67, generator=g, device=cuda).to(dtype) + 0.5
+    build.reset_launch_counts()
+    k = vorticity(u, v, ix, iy)
+    assert build.launch_counts()["vorticity"] == 1
+    p = vorticity_plain(u, v, ix, iy)
+    tol = {torch.bfloat16: dict(rtol=1e-2, atol=1e-2),
+           torch.float32: dict(rtol=1e-6, atol=1e-6),
+           torch.float64: dict(rtol=1e-12, atol=1e-12)}[dtype]
+    assert k.dtype == dtype
+    assert_close(k.float().cpu(), p.float().cpu(), **tol)
+    zeta, _, _ = cgrid_diagnostics(u, v, ix, iy)  # kernel B's vorticity
+    assert_close(k.float().cpu(), zeta.float().cpu(), **tol)
+
+
+@pytest.mark.cuda
+def test_vorticity_kernel_gradient_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(15)
+    ins = [torch.randn(s, generator=g, device=cuda) for s in ((24, 40), (24, 40), (40,), (24,))]
+    ins_k = [a.clone().requires_grad_() for a in ins]
+    ins_p = [a.clone().requires_grad_() for a in ins]
+    (vorticity(*ins_k) ** 2).sum().backward()
+    (vorticity_plain(*ins_p) ** 2).sum().backward()
+    for a, b in zip(ins_k, ins_p):
+        assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_shift_and_diagnostics_kernels_carry_gradients(cuda):
+    """Kernels A and B on tensors that need gradients: autograd runs through
+    their plain versions, as on the CPU (the kernels alone would leave the
+    outputs without a gradient)."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn((20, 30), generator=g, device=cuda)
+    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    (shift(xk, 1, "diff", "left", "extrapolate") ** 2).sum().backward()
+    (shift_plain(xp, 1, "diff", "left", "extrapolate") ** 2).sum().backward()
+    assert_close(xk.grad, xp.grad, rtol=1e-6, atol=1e-6)
+    ins = [torch.randn(s, generator=g, device=cuda) for s in ((20, 30), (20, 30), (30,), (20,))]
+    ins_k = [a.clone().requires_grad_() for a in ins]
+    ins_p = [a.clone().requires_grad_() for a in ins]
+    sum(o.sum() for o in cgrid_diagnostics(*ins_k)).backward()
+    sum(o.sum() for o in cgrid_diagnostics_plain(*ins_p)).backward()
+    for a, b in zip(ins_k, ins_p):
+        assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_face_analysis_on_card_matches_cpu(cuda):
+    """The LLC face analysis (tracer gradients, vorticity, divergence, the
+    2-D vector interp) with a leading batch dim: 8 launches of kernel E and
+    none of A on the card, the same values as on the CPU."""
+    import warnings
+
+    _, grid = xtt.grids.llc_grid(n=48)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    th, u, v = (torch.randn((3, 13, 48, 48), generator=g, device=cuda) for _ in range(3))
+    u[0, 6, 0, 5], v[2, 9, 47, 3], th[1, 0, 10, 47] = float("nan"), float("inf"), -float("inf")
+
+    def run(dev):
+        t = xtt.GriddedArray(th.to(dev), ("time", "face", "y", "x"))
+        gu = xtt.GriddedArray(u.to(dev), ("time", "face", "y", "xl"))
+        gv = xtt.GriddedArray(v.to(dev), ("time", "face", "yl", "x"))
+        build.reset_launch_counts()
+        out = [grid.diff(t, "X"), grid.diff(t, "Y"),
+               grid.diff({"X": gv}, "X", other_component={"Y": gu})
+               - grid.diff({"Y": gu}, "Y", other_component={"X": gv}),
+               grid.diff({"X": gu}, "X", other_component={"Y": gv})
+               + grid.diff({"Y": gv}, "Y", other_component={"X": gu})]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            vec = grid.interp_2d_vector({"X": gu, "Y": gv}, to="center")
+        return out + [vec["X"], vec["Y"]], build.launch_counts()
+
+    on_card, counts = run(cuda)
+    assert counts["face_shift"] == 8 and counts["shift"] == 0
+    on_cpu, _ = run(torch.device("cpu"))
+    for a, b in zip(on_card, on_cpu):
+        assert a.dims == b.dims and a.data.device.type == "cuda"
+        _assert_same_values(a.data.cpu(), b.data)

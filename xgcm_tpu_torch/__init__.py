@@ -1,8 +1,9 @@
 """xgcm_tpu_torch: the PyTorch and CUDA port of xgcm_tpu, for NVIDIA Hopper.
 
 Finite-volume analysis of staggered (Arakawa) grid datasets: position-aware
-``interp``/``diff``/``min``/``max`` and the linear, log and conservative
-vertical transforms, on torch tensors.  On a CUDA tensor the hot paths run
+``interp``/``diff``/``min``/``max`` on scalars and vector components, on
+face-less and face-connected grids (cubed sphere, LLC; see :mod:`.grids`),
+and the linear, log and conservative vertical transforms, on torch tensors.  On a CUDA tensor the hot paths run
 hand-written CUDA kernels (``csrc/``); on a CPU tensor they run the kernels'
 plain PyTorch versions.  Host data that enters the package goes to the CUDA
 card unless the caller asks for the CPU (:func:`set_default_device`).
@@ -17,6 +18,7 @@ from .core.device import get_default_device, set_default_device
 from .core.grid import Grid
 from .core.grid_ufunc import GridUFunc, apply_as_grid_ufunc, as_grid_ufunc
 from .core.signature import GridUFuncSignature
+from . import grids  # noqa: E402  (needs Grid above)
 
 __all__ = [
     "Axis",
@@ -29,5 +31,6 @@ __all__ = [
     "as_grid_ufunc",
     "from_numpy_dataset",
     "get_default_device",
+    "grids",
     "set_default_device",
 ]

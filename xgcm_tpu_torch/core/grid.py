@@ -1,12 +1,13 @@
 """The Grid: user-facing API over multiple staggered axes.
 
-The counterpart of :class:`xgcm_tpu.core.grid.Grid` on torch tensors.  This
-slice ports construction (with metadata auto-parsing), the 1D grid-ufunc
-dispatch, the fused shift fast path, ``interp``/``diff``/``min``/``max``,
-and ``transform``/``transform_multi``.  Face connections, metrics, cumsum,
-the metric-weighted calculus, vector ops and the xarray bridge are not
-ported yet; asking for them raises ``NotImplementedError`` (ROADMAP
-Queue 1).
+The counterpart of :class:`xgcm_tpu.core.grid.Grid` on torch tensors:
+construction (with metadata auto-parsing and face connections), the 1D
+grid-ufunc dispatch with its fused shift fast paths (face-less and
+face-connected), ``interp``/``diff``/``min``/``max`` on scalars and vector
+components, ``diff_2d_vector``/``interp_2d_vector``, and
+``transform``/``transform_multi``.  Metrics, cumsum, the metric-weighted
+calculus and the xarray bridge are not ported yet; asking for them raises
+``NotImplementedError`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -60,7 +61,9 @@ class Grid:
 
         ``coords`` maps axis name -> {position: dim name};
         ``periodic``/``boundary``/``fill_value`` take scalars or per-axis
-        dicts.  ``face_connections`` and ``metrics`` are not ported yet.
+        dicts.  ``face_connections`` maps one face dim to the per-face
+        links ``{face: {axis: (left, right)}}``, each link ``None`` or
+        ``(face, axis, reverse)``.  ``metrics`` is not ported yet.
         """
         if not isinstance(ds, Dataset):
             raise TypeError(
@@ -97,10 +100,6 @@ class Grid:
                     f"before calling Grid constructer."
                 )
 
-        if face_connections:
-            raise NotImplementedError(
-                "face-connected grids are not ported yet (ROADMAP Queue 1, item 10)"
-            )
         if metrics is not None:
             raise NotImplementedError(
                 "grid metrics are not ported yet (ROADMAP Queue 1, item 8)"
@@ -153,6 +152,15 @@ class Grid:
         default_shifts_dict = self._map_kwargs_over_axes(default_shifts, axes=all_axes)
         fill_value_dict = self._map_kwargs_over_axes(fill_value, axes=all_axes)
 
+        if face_connections:
+            self._facedim = list(face_connections.keys())[0]
+            self._face_connections = face_connections
+        else:
+            self._facedim = None
+            self._face_connections = None
+        # device copies of the compiled face plans, by (x axis, y axis, device)
+        self._face_plans: Dict[Any, Any] = {}
+
         # a dimension may serve exactly one (axis, position)
         seen_dims: Dict[str, Any] = {}
         for axis_name in all_axes:
@@ -177,6 +185,9 @@ class Grid:
                 fill_value=fill_value_dict.get(axis_name, None),
             )
 
+        if face_connections is not None:
+            self._assign_face_connections(face_connections)
+
     # ------------------------------------------------------------------ kwargs
     def _map_kwargs_over_axes(
         self, kwargs: Union[Any, Dict[str, Any]], axes: Optional[Iterable[str]] = None
@@ -196,6 +207,77 @@ class Grid:
         if user_kwargs is None:
             return defaults
         return {**defaults, **self._map_kwargs_over_axes(user_kwargs)}
+
+    # -------------------------------------------------------- face connections
+    def _assign_face_connections(self, fc):
+        """Check that every face link is linked back by its neighbour, and
+        attach the links to the axes."""
+        if len(fc) > 1:
+            raise ValueError(
+                "Only one face dimension is supported for now. "
+                f"Instead found {list(fc.keys())!r}"
+            )
+        facedim = list(fc.keys())[0]
+        if facedim not in self._ds.dims:
+            raise ValueError(
+                f"Face dimension {facedim} does not exist in the dataset. "
+                f"Found {list(self._ds.dims)} instead"
+            )
+
+        face_links = fc[facedim]
+        n_faces = self._ds.dims[facedim]
+        valid_face_ids = set(range(n_faces))
+        axis_connections: Dict[str, Dict[int, tuple]] = {}
+
+        for fidx, face_axis_links in face_links.items():
+            for axis, axis_links in face_axis_links.items():
+                axis_connections.setdefault(axis, {})
+                link_left, link_right = axis_links
+
+                def check_neighbor(link, position):
+                    if link is None:
+                        return None
+                    idx, ax, rev = link
+                    correct_position = int(not position) if rev else position
+                    try:
+                        neighbor_link = face_links[idx][ax][correct_position]
+                    except (KeyError, IndexError):
+                        raise KeyError(
+                            f"Couldn't find a face link for face {idx!r}"
+                            f"in axis {ax!r} at position {correct_position!r}"
+                        )
+                    idx_n, ax_n, rev_n = neighbor_link
+                    if ax not in self.axes:
+                        raise KeyError(f"axis {ax!r} is not a valid axis")
+                    if ax_n not in self.axes:
+                        raise KeyError(f"axis {ax_n!r} is not a valid axis")
+                    if idx not in valid_face_ids:
+                        raise IndexError(
+                            f"{idx!r} is not a valid index for face"
+                            f"dimension {facedim!r}"
+                        )
+                    if idx_n not in valid_face_ids:
+                        raise IndexError(
+                            f"{idx!r} is not a valid index for face"
+                            f"dimension {facedim!r}"
+                        )
+                    if (idx_n != fidx) or (ax_n != axis) or (rev_n != rev):
+                        raise ValueError(
+                            "Face link mismatch: neighbor doesn't"
+                            " correctly link back to this face. "
+                            f"face: {fidx!r}, axis: {axis!r}, "
+                            f"position: {position!r}, rev: {rev!r}, "
+                            f"link: {link!r}, neighbor_link: {neighbor_link!r}"
+                        )
+                    return idx, self.axes[ax], rev
+
+                left = check_neighbor(link_left, 1)
+                right = check_neighbor(link_right, 0)
+                axis_connections[axis][fidx] = (left, right)
+
+        for axis, links in axis_connections.items():
+            self.axes[axis]._facedim = facedim
+            self.axes[axis]._face_connections = links
 
     def _get_dims_from_axis(self, da, axis) -> List[str]:
         da = _maybe_unpack_vector_component(da)
@@ -263,7 +345,8 @@ class Grid:
                 funcname, signature_1d, module=gridops, **kwargs
             )
             fused = self._maybe_fused_1d_op(
-                funcname, array, ax_name, signature_1d, remaining_kwargs
+                funcname, array, ax_name, signature_1d, remaining_kwargs,
+                other_component=other_component,
             )
             if fused is not None:
                 array = fused
@@ -279,20 +362,30 @@ class Grid:
         return array
 
     def _maybe_fused_1d_op(
-        self, funcname, array, ax_name, signature_1d, call_kwargs
+        self, funcname, array, ax_name, signature_1d, call_kwargs,
+        other_component=None,
     ) -> Optional[GriddedArray]:
         """Fused fast path for the hot 1D stencils: float inputs, the four
-        length-preserving position pairs and the standard boundary kwargs.
-        Bit-identical to the generic pad-then-stencil path (see
-        ops/fused.py); ``None`` sends the call to the generic engine."""
+        length-preserving position pairs and the standard boundary kwargs,
+        on scalars and (on face-connected grids, with their
+        ``other_component`` partner) vector components.  Bit-identical to
+        the generic pad-then-stencil path (see ops/fused.py); ``None``
+        sends the call to the generic engine."""
         from ..ops.fused import FUSABLE_OPS, FUSABLE_PAIRS, fused_shift_op
 
         if funcname not in FUSABLE_OPS:
             return None
+        vector_axis = None
+        partner = None
         if isinstance(array, dict):
-            # face-less grids: basic BCs ignore the partner, so a vector
+            ((vector_axis, array),) = array.items()
+            if self._face_connections is not None:
+                # cross-face vector halos need the partner component
+                if not isinstance(other_component, dict):
+                    return None
+                ((_, partner),) = other_component.items()
+            # face-less grids: basic BCs ignore the partner, so the
             # component behaves exactly like a scalar
-            ((_, array),) = array.items()
         data = array.data
         if not (data.is_floating_point() if isinstance(data, torch.Tensor)
                 else np.issubdtype(data.dtype, np.floating)):
@@ -316,16 +409,138 @@ class Grid:
 
         dim = ax.coords[from_pos]
         out_dim = ax.coords[to_pos]
+        direction = FUSABLE_PAIRS[(from_pos, to_pos)]
+
+        if self._face_connections is not None:
+            fused = self._maybe_fused_face_op(
+                funcname, array, ax_name, dim, direction, boundary,
+                float(fill_value), vector_axis=vector_axis, partner=partner,
+            )
+            if fused is None:
+                return None
+            data, arranged_dims = fused
+            dims = tuple(out_dim if d == dim else d for d in arranged_dims)
+            return GriddedArray(data, dims, name=array.name).transpose(
+                *(out_dim if d == dim else d for d in array.dims)
+            )
+
         data = fused_shift_op(
             array.data,
             array.get_axis_num(dim),
             funcname,
-            FUSABLE_PAIRS[(from_pos, to_pos)],
+            direction,
             boundary,
             float(fill_value),
         )
         dims = tuple(out_dim if d == dim else d for d in array.dims)
         return GriddedArray(data, dims, name=array.name)
+
+    def _maybe_fused_face_op(
+        self, funcname, array, ax_name, dim, direction, boundary, fill_value,
+        vector_axis=None, partner=None,
+    ):
+        """Fused face-connected fast path: a per-face shift whose one
+        wrapped edge line per face comes from the compiled plan (see
+        ops/fused.fused_face_shift_op).  Returns (data, arranged_dims), or
+        ``None`` for the generic engine: a face dim or axis it cannot place,
+        a plan it cannot compile, faces that are not square, a partner of
+        another shape."""
+        from ..ops.fused import fused_face_shift_op
+
+        facedim = self._facedim
+        if facedim not in array.dims:
+            return None
+        # the two face-spanning axes: the op axis plus the other axis named
+        # in the connections
+        conn_axes = sorted(
+            {a for links in self._face_connections[facedim].values() for a in links}
+        )
+        if ax_name not in conn_axes and len(conn_axes) > 2:
+            return None
+        axes2 = sorted(set(conn_axes) | {ax_name})
+        if len(axes2) == 1:
+            # a second spatial axis defines the strips: any other axis the
+            # array spans
+            others = [
+                a for a in self.axes
+                if a != ax_name
+                and any(d in array.dims for d in self.axes[a].coords.values())
+            ]
+            if not others:
+                return None
+            axes2 = sorted([ax_name] + [others[0]])
+        if len(axes2) != 2:
+            return None
+        try:
+            dims_of = {a: self.axes[a]._get_position_name(array)[1] for a in axes2}
+        except KeyError:
+            return None
+        # the "x" role goes to the axis later in the array's dim order, so
+        # the canonical (face, y, x) arrangement is the identity
+        a0, a1 = axes2
+        if array.get_axis_num(dims_of[a0]) > array.get_axis_num(dims_of[a1]):
+            x_axis, y_axis = a0, a1
+        else:
+            x_axis, y_axis = a1, a0
+        xdim, ydim = dims_of[x_axis], dims_of[y_axis]
+
+        rest = [d for d in array.dims if d not in (facedim, ydim, xdim)]
+        arranged = array.transpose(*rest, facedim, ydim, xdim)
+        ny, nx = arranged.shape[-2:]
+        if ny != nx:
+            # the (..., face, 4, L) strip table needs one strip length
+            return None
+        partner_data = None
+        vector_axis_code = None
+        if vector_axis is not None:
+            if vector_axis not in (x_axis, y_axis):
+                return None
+            vector_axis_code = 0 if vector_axis == x_axis else 1
+            if partner is not None:
+                try:
+                    p_ydim = self.axes[y_axis]._get_position_name(partner)[1]
+                    p_xdim = self.axes[x_axis]._get_position_name(partner)[1]
+                except KeyError:
+                    return None
+                p_rest = [d for d in partner.dims if d not in (facedim, p_ydim, p_xdim)]
+                arranged_p = partner.transpose(*p_rest, facedim, p_ydim, p_xdim)
+                if arranged_p.shape != arranged.shape:
+                    return None  # staggered sizes differ: generic path
+                partner_data = arranged_p.data
+
+        plan = self._face_plan(x_axis, y_axis, arranged.device)
+        if plan is None:
+            return None
+        data = fused_face_shift_op(
+            arranged.data,
+            plan,
+            axis_is_x=(dim == xdim),
+            op=funcname,
+            direction=direction,
+            boundary=boundary,
+            fill_value=fill_value,
+            partner=partner_data,
+            vector_axis_code=vector_axis_code,
+        )
+        return data, arranged.dims
+
+    def _face_plan(self, x_axis: str, y_axis: str, device):
+        """The face plan for (x_axis, y_axis) as tensors on ``device``,
+        compiled and copied there once (``None`` when a connection runs
+        along neither axis)."""
+        from ..ops.fused import DeviceFacePlan
+        from .topology import compile_face_plan
+
+        key = (x_axis, y_axis, torch.device(device))
+        if key not in self._face_plans:
+            try:
+                plan = compile_face_plan(self, x_axis, y_axis)
+            except KeyError:
+                plan = None
+            self._face_plans[key] = (
+                None if plan is None else DeviceFacePlan.from_plan(plan, device)
+            )
+        return self._face_plans[key]
 
     def _create_1d_grid_ufunc_signatures(
         self, da: GriddedArray, axis, to
@@ -387,6 +602,61 @@ class Grid:
     def max(self, da, axis, **kwargs):
         """Maximum of neighbouring points."""
         return self._1d_grid_ufunc_dispatch("max", da, axis, **kwargs)
+
+    # ----------------------------------------------------------- vector ops
+    def _apply_vector_function(self, function, vector, **kwargs):
+        """Apply ``function`` to each component of a 2D C-grid vector along
+        its own axis, with the other component as its partner."""
+        if not (len(vector) == 2 and isinstance(vector, dict)):
+            raise ValueError(
+                "Input is expected to be a dictionary with two key/value pairs "
+                "which map grid axis to the vector component parallel to that axis"
+            )
+        warnings.warn(
+            "`interp_2d_vector` and `diff_2d_vector` will be removed from future "
+            "releases. The same functionality will be accessible under the "
+            "`Grid.diff` and `Grid.interp` methods.",
+            category=DeprecationWarning,
+        )
+        to = kwargs.get("to", "center")
+        if to != "center":
+            raise NotImplementedError(
+                "Only vector interpolation to cell center is implemented, "
+                f"but got to={to!r}"
+            )
+        for axis_name, component in vector.items():
+            position, _ = self.axes[axis_name]._get_position_name(component)
+            if position == "center":
+                raise NotImplementedError(
+                    "Only vector interpolation to cell center is implemented, "
+                    f"but vector {axis_name} component is defined at center "
+                    f"(dims: {component.dims!r})"
+                )
+
+        x_axis_name, y_axis_name = list(vector)
+        x_component = function(
+            {x_axis_name: vector[x_axis_name]},
+            x_axis_name,
+            other_component={y_axis_name: vector[y_axis_name]},
+            **kwargs,
+        )
+        y_component = function(
+            {y_axis_name: vector[y_axis_name]},
+            y_axis_name,
+            other_component={x_axis_name: vector[x_axis_name]},
+            **kwargs,
+        )
+        return {x_axis_name: x_component, y_axis_name: y_component}
+
+    def diff_2d_vector(self, vector, **kwargs):
+        """Difference a 2D C-grid vector ``{axis: component}`` onto cell
+        centres, each component along its own axis."""
+        return self._apply_vector_function(self.diff, vector, **kwargs)
+
+    def interp_2d_vector(self, vector, **kwargs):
+        """Interpolate a 2D C-grid vector ``{axis: component}`` onto cell
+        centres, each component along its own axis."""
+        return self._apply_vector_function(self.interp, vector, **kwargs)
 
     def transform(self, da, axis, target, **kwargs):
         """Convert ``da`` to new 1D coordinates along ``axis``.

@@ -239,14 +239,18 @@ def apply_as_grid_ufunc(
     other_component: Optional[
         Union[Dict[str, GriddedArray], Sequence[Dict[str, GriddedArray]]]
     ] = None,
+    dask: Optional[str] = None,
+    map_overlap: bool = False,
     **kwargs,
 ) -> Any:
     """Apply a kernel to GriddedArrays in a grid-position-aware manner.
 
     The axis positions of inputs and outputs are specified by ``signature``
     (e.g. ``"(X:center)->(X:left)"``); axis names therein are dummy variables
-    bound to the real axes named in ``axis``.  ``keep_coords`` is accepted
-    for API parity: the native container carries no coordinate labels.
+    bound to the real axes named in ``axis``.  ``keep_coords``, ``dask`` and
+    ``map_overlap`` are accepted for API parity and ignored: the native
+    container carries no coordinate labels and no dask chunks.  Passed to a
+    Grid op, any of them sends the call to this engine.
     """
     if grid is None:
         raise ValueError("Must provide a grid object to describe the Axes")

@@ -13,9 +13,11 @@ extrapolate  extrapolate        linear from the two edge cells
 None         wrap               default resolves to periodic
 ===========  =================  ===========================================
 
-Face-connection halo assembly is not ported yet (ROADMAP Queue 1, item 10):
-a grid with face connections never reaches this module, because the port's
-Grid refuses ``face_connections`` at construction.
+On a face-connected grid every face is pre-padded with the basic boundary
+condition and its connected halos are then replaced by the neighbour faces'
+edge strips (:func:`_pad_face_connections`): the generic engine behind every
+case the fused face path (``ops/fused.py``) declines, built from slices,
+``flip`` and ``torch.cat`` as the JAX package's is from ``jnp.concatenate``.
 """
 
 from __future__ import annotations
@@ -121,6 +123,174 @@ def _pad_basic(
     return da.with_data(data)
 
 
+# ---------------------------------------------------------------------------
+# Face-connection halo assembly.
+#
+# Per connected edge, given connection = (source_face, source_axis, reverse):
+#   * the halo strip is taken from the opposite edge of the source face
+#     (the same edge when reverse);
+#   * if the connection crosses axes (source_axis != axis) the strip's dims
+#     are swapped so that its long direction lies along the target's
+#     tangential dim;
+#   * reverse => flip along the orthogonal (halo-width) dim; if the padded
+#     array is the vector component parallel to the padding axis, negate;
+#   * axis swap without reverse => flip along the tangential dim; if the
+#     padded array is the vector component NOT parallel to the padding axis,
+#     negate.
+# ---------------------------------------------------------------------------
+
+
+def _swap_dim_names(da: GriddedArray, from_name: str, to_name: str) -> GriddedArray:
+    """Swap two dim names (a plain rename if ``to_name`` is absent)."""
+    if to_name in da.dims:
+        da = da.rename_dims({to_name: to_name + "__tmp"})
+        if from_name in da.dims:
+            da = da.rename_dims({from_name: to_name})
+        da = da.rename_dims({to_name + "__tmp": from_name})
+    else:
+        da = da.rename_dims({from_name: to_name})
+    return da
+
+
+def _rename_positions_like(
+    grid: "Grid", source: GriddedArray, target: GriddedArray
+) -> GriddedArray:
+    """Rename source dims so that grid positions line up with the target's
+    dims (padding with the partner vector component across a swapped-axis
+    connection)."""
+    rename = {}
+    for di in target.dims:
+        if di in source.dims:
+            continue
+        for axis in grid.axes.values():
+            all_dims = list(axis.coords.values())
+            if di in all_dims:
+                src_matches = [d for d in all_dims if d in source.dims]
+                if src_matches:
+                    rename[src_matches[0]] = di
+    return source.rename_dims(rename)
+
+
+def _pad_face_connections(
+    da: Union[GriddedArray, Dict[str, GriddedArray]],
+    grid: "Grid",
+    padding_width: Dict[str, Tuple[int, int]],
+    padding: Dict[str, Optional[str]],
+    fill_value: Dict[str, float],
+    other_component: Optional[Dict[str, GriddedArray]] = None,
+) -> GriddedArray:
+    """Pad every face with the basic boundary condition to the widest
+    requested width, replace the connected halos with the source faces'
+    strips (in sorted-axis order, so corner cells match the JAX package),
+    then trim back to the requested widths."""
+    facedim = grid._facedim
+    connections = grid._face_connections
+    if connections is None or facedim is None:
+        raise ValueError("Grid has no face connections")
+
+    if isinstance(da, dict):
+        isvector = True
+        ((vectoraxis, da),) = da.items()
+        if other_component is None:
+            raise ValueError(
+                "Padding vector components requires `other_component` input."
+            )
+        ((_, da_partner),) = other_component.items()
+    else:
+        isvector = False
+        da_partner = None
+
+    conn_axes = sorted(
+        {ax for face_links in connections[facedim].values() for ax in face_links}
+    )
+    pad_axes = sorted(set(conn_axes) | set(padding_width))
+    padding_width = {ax: padding_width.get(ax, (0, 0)) for ax in pad_axes}
+
+    width = max(w for ws in padding_width.values() for w in ws)
+    max_padding_width = {ax: (width, width) for ax in padding_width}
+
+    da_prepadded = _pad_basic(da, grid, max_padding_width, padding, fill_value)
+    partner_prepadded = (
+        _pad_basic(da_partner, grid, max_padding_width, padding, fill_value)
+        if isvector
+        else None
+    )
+
+    n_faces = da.sizes[facedim]
+    faces = []
+    for i in range(n_faces):
+        target_da = da_prepadded.isel({facedim: i})
+        face_links = connections[facedim].get(i, {})
+        for axname in pad_axes:
+            left_conn, right_conn = face_links.get(axname, (None, None))
+            _, target_dim = grid.axes[axname]._get_position_name(target_da)
+            for connection, is_right in ((left_conn, False), (right_conn, True)):
+                if width == 0 or not connection:
+                    continue
+                source_face, source_axis, reverse = connection
+                swap_axis = axname != source_axis
+
+                source_da = da_prepadded.isel({facedim: source_face})
+                if isvector and swap_axis:
+                    source_da = partner_prepadded.isel({facedim: source_face})
+                    source_da = _rename_positions_like(grid, source_da, target_da)
+
+                _, source_dim = grid.axes[source_axis]._get_position_name(source_da)
+
+                # the `width` interior lines next to the relevant edge of the
+                # source, skipping its own pre-padding
+                if is_right:
+                    src_slc = (
+                        slice(-2 * width, -width) if reverse else slice(width, 2 * width)
+                    )
+                    tgt_slc = slice(0, -width)
+                else:
+                    src_slc = (
+                        slice(width, 2 * width) if reverse else slice(-2 * width, -width)
+                    )
+                    tgt_slc = slice(width, None)
+
+                source_slice = source_da.isel({source_dim: src_slc})
+                target_slice = target_da.isel({target_dim: tgt_slc})
+
+                if swap_axis:
+                    source_slice = _swap_dim_names(source_slice, source_dim, target_dim)
+                ortho_dim = target_dim
+                tangential_dim = source_dim
+
+                if reverse:
+                    source_slice = source_slice.flip(ortho_dim)
+                    if isvector and vectoraxis == axname:
+                        source_slice = -source_slice
+                if swap_axis and not reverse:
+                    source_slice = source_slice.flip(tangential_dim)
+                    if isvector and vectoraxis != axname:
+                        source_slice = -source_slice
+
+                source_slice = source_slice.transpose(*target_slice.dims)
+
+                parts = [target_slice, source_slice] if is_right else [source_slice, target_slice]
+                ax_num = target_slice.get_axis_num(target_dim)
+                target_da = target_slice.with_data(
+                    torch.cat([as_tensor(p.data) for p in parts], dim=ax_num)
+                )
+        faces.append(target_da)
+
+    face_axis = da.get_axis_num(facedim)
+    stacked = torch.stack([as_tensor(f.data) for f in faces], dim=face_axis)
+    dims = list(faces[0].dims)
+    dims.insert(face_axis, facedim)
+    da_padded = GriddedArray(stacked, dims, name=da.name)
+
+    # trim the uniformly pre-padded array back to the requested widths
+    for axname in padding_width:
+        _, dim = grid.axes[axname]._get_position_name(da_padded)
+        start = max_padding_width[axname][0] - padding_width[axname][0]
+        stop = max_padding_width[axname][1] - padding_width[axname][1]
+        da_padded = da_padded.isel({dim: slice(start, -stop if stop else None)})
+    return da_padded
+
+
 def pad(
     data: Union[GriddedArray, Dict[str, GriddedArray]],
     grid: "Grid",
@@ -134,7 +304,9 @@ def pad(
     ``boundary_width`` is ``{axis_name: (lower, upper)}``; ``boundary`` and
     ``fill_value`` override the per-axis defaults (scalar or per-axis dict).
     A single-entry dict ``{axis_name: array}`` marks a vector component;
-    without face connections it pads like a scalar.
+    without face connections it pads like a scalar, across face
+    connections its halos come from ``other_component``, the orthogonal
+    component, where a connection swaps axes.
     """
     padding = grid._complete_user_kwargs_using_axis_defaults(boundary, "boundary")
     fill_values = grid._complete_user_kwargs_using_axis_defaults(
@@ -142,6 +314,11 @@ def pad(
     )
     if boundary_width is None or all(w == (0, 0) for w in boundary_width.values()):
         return data
+    if grid._face_connections is not None:
+        return _pad_face_connections(
+            data, grid, boundary_width, padding, fill_values,
+            other_component=other_component,
+        )
     if isinstance(data, dict):
         (data,) = list(data.values())
     return _pad_basic(data, grid, boundary_width, padding, fill_values)

@@ -1,7 +1,7 @@
 // Shared helpers of the xgcm_tpu_torch kernels: dtype codes (kept equal to
 // DTYPE_CODES in ops/kernels/build.py), loads that widen 16-bit types to
-// float, stores that round once, and the variable set of the multi-variable
-// kernels.
+// float, stores that round once, the 2-point ops of the shift stencils
+// (kernels A and E), and the variable set of the multi-variable kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +41,29 @@ template <> __device__ __forceinline__ float round_to<__half>(double x) {
 }
 template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(double x) {
   return __bfloat162float(__double2bfloat16(x));
+}
+
+// The 2-point ops of the shift stencils, on (lower-index, higher-index)
+// operands, as ops/stencils.py PAIR_OPS (codes kept equal to _OPS in
+// ops/kernels/shift.py).
+enum Op : int { DIFF = 0, INTERP = 1, MIN = 2, MAX = 3 };
+
+template <typename C>
+__device__ __forceinline__ C pair_op(int op, C lo, C hi) {
+  switch (op) {
+    case DIFF:
+      return hi - lo;
+    case INTERP:
+      return (hi + lo) * C(0.5);
+    case MIN:  // NaN-propagating, operand order of torch.minimum(lo, hi)
+      if (lo != lo) return lo;
+      if (hi != hi) return hi;
+      return (hi < lo) ? hi : lo;
+    default:  // MAX
+      if (lo != lo) return lo;
+      if (hi != hi) return hi;
+      return (lo < hi) ? hi : lo;
+  }
 }
 
 // Up to kMaxVars variables that share one geometry (kernels C/F and G/H):

@@ -21,26 +21,7 @@
 
 namespace {
 
-enum Op : int { DIFF = 0, INTERP = 1, MIN = 2, MAX = 3 };
 enum Bc : int { PERIODIC = 0, FILL = 1, EXTEND = 2, EXTRAPOLATE = 3 };
-
-template <typename C>
-__device__ __forceinline__ C pair_op(int op, C lo, C hi) {
-  switch (op) {
-    case DIFF:
-      return hi - lo;
-    case INTERP:
-      return (hi + lo) * C(0.5);
-    case MIN:  // NaN-propagating, operand order of torch.minimum(lo, hi)
-      if (lo != lo) return lo;
-      if (hi != hi) return hi;
-      return (hi < lo) ? hi : lo;
-    default:  // MAX
-      if (lo != lo) return lo;
-      if (hi != hi) return hi;
-      return (lo < hi) ? hi : lo;
-  }
-}
 
 template <typename T>
 __global__ void shift_kernel(const T* __restrict__ x, T* __restrict__ out,
@@ -68,7 +49,7 @@ __global__ void shift_kernel(const T* __restrict__ x, T* __restrict__ out,
     } else {  // PERIODIC
       nb = xt::to_compute(x[left ? idx + wrap : idx - wrap]);
     }
-    const C r = left ? pair_op(op, nb, xv) : pair_op(op, xv, nb);
+    const C r = left ? xt::pair_op(op, nb, xv) : xt::pair_op(op, xv, nb);
     out[idx] = xt::from_compute<T>(r);
   }
 }

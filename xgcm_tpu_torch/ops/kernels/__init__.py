@@ -16,10 +16,21 @@ wrapper                     CUDA source                     replaces (Pallas, JA
 ``conservative.``           ``csrc/conservative.cu``        ``pallas_transform.``
 ``conservative_rebin_multi``                                ``conservative_fused_multi_T``
 (H)
+``vorticity.vorticity`` (D) ``csrc/vorticity.cu``           ``pallas_stencils.fused_vorticity``
+``face_shift.face_shift``   ``csrc/face_shift.cu``          ``pallas_stencils.face_shift_op``
+(E)
 ==========================  ==============================  ===============================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel (building the library at first use) or raises.
 """
 
-from . import build, cgrid_diagnostics, conservative, interp_linear, shift  # noqa: F401
+from . import (  # noqa: F401
+    build,
+    cgrid_diagnostics,
+    conservative,
+    face_shift,
+    interp_linear,
+    shift,
+    vorticity,
+)

@@ -42,7 +42,10 @@ __all__ = [
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("shift.cu", "cgrid_diagnostics.cu", "interp_linear.cu", "conservative.cu")
+SOURCES = (
+    "shift.cu", "cgrid_diagnostics.cu", "interp_linear.cu", "conservative.cu",
+    "face_shift.cu", "vorticity.cu",
+)
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -58,6 +61,8 @@ LAUNCHES = {
     "interp_linear_multi": 0,
     "conservative": 0,
     "conservative_multi": 0,
+    "face_shift": 0,
+    "vorticity": 0,
 }
 
 # The multi-variable kernels take at most this many variables: the size of
@@ -108,6 +113,10 @@ SIGNATURES = {
         _P, _PP, _LP, _LP, _PP, _P, _I, _I, _I,
         _L, _L, _L, _L, _L, _L, _L, _I, _P,
     ),
+    # x, halo, out, dtype, outer, n, inner, op, direction, stream
+    "xt_face_shift": (_P, _P, _P, _I, _L, _L, _L, _I, _I, _P),
+    # u, v, inv_dx, inv_dy, zeta, dtype, ny, nx, stream
+    "xt_vorticity": (_P, _P, _P, _P, _P, _I, _L, _L, _P),
 }
 
 

@@ -3,7 +3,7 @@ pass (``csrc/cgrid_diagnostics.cu``), and its plain PyTorch version.
 
 A CPU tensor takes :func:`cgrid_diagnostics_plain`, the roll formulation of
 ``xgcm_tpu/ops/diagnostics.py``; a CUDA tensor launches the kernel or
-raises.
+raises.  Gradients run through the plain version.
 """
 
 from __future__ import annotations
@@ -59,18 +59,21 @@ def cgrid_diagnostics(
         raise ValueError("inv_dx must be (nx,) and inv_dy (ny,)")
     if not (u.is_contiguous() and v.is_contiguous()):
         raise ValueError("diagnostics kernel needs contiguous u and v")
-    compute = torch.float64 if u.dtype == torch.float64 else torch.float32
-    ix = inv_dx.to(compute).contiguous()
-    iy = inv_dy.to(compute).contiguous()
-    zeta = torch.empty_like(u)
-    div = torch.empty_like(u)
-    ke = torch.empty_like(u)
-    lib = build.load_library()
-    status = lib.xt_cgrid_diagnostics(
-        u.data_ptr(), v.data_ptr(), ix.data_ptr(), iy.data_ptr(),
-        zeta.data_ptr(), div.data_ptr(), ke.data_ptr(),
-        build.DTYPE_CODES[u.dtype], ny, nx, build.stream_ptr(u.device),
-    )
-    build.check_status("xt_cgrid_diagnostics", status)
-    build.LAUNCHES["cgrid_diagnostics"] += 1
-    return zeta, div, ke
+
+    def launch(u, v, inv_dx, inv_dy):
+        compute = torch.float64 if u.dtype == torch.float64 else torch.float32
+        ix = inv_dx.to(compute).contiguous()
+        iy = inv_dy.to(compute).contiguous()
+        zeta = torch.empty_like(u)
+        div = torch.empty_like(u)
+        ke = torch.empty_like(u)
+        status = build.load_library().xt_cgrid_diagnostics(
+            u.data_ptr(), v.data_ptr(), ix.data_ptr(), iy.data_ptr(),
+            zeta.data_ptr(), div.data_ptr(), ke.data_ptr(),
+            build.DTYPE_CODES[u.dtype], ny, nx, build.stream_ptr(u.device),
+        )
+        build.check_status("xt_cgrid_diagnostics", status)
+        build.LAUNCHES["cgrid_diagnostics"] += 1
+        return zeta, div, ke
+
+    return build.PlainBackward.apply(launch, cgrid_diagnostics_plain, u, v, inv_dx, inv_dy)

@@ -5,7 +5,7 @@ PyTorch version.
 condition applied to the one wrapped edge line.  A CPU tensor takes the
 plain version, :func:`shift_plain` (the roll formulation of
 ``xgcm_tpu.ops.fused.fused_shift_op``); a CUDA tensor launches the kernel
-or raises.
+or raises.  Gradients run through the plain version.
 """
 
 from __future__ import annotations
@@ -94,14 +94,20 @@ def shift(
     inner = 1
     for s in shape[axis + 1:]:
         inner *= int(s)
-    out = torch.empty_like(x)
-    lib = build.load_library()
-    status = lib.xt_shift(
-        x.data_ptr(), out.data_ptr(), build.DTYPE_CODES[x.dtype],
-        outer, int(shape[axis]), inner,
-        _OPS[op], _DIRECTIONS[direction], _BCS[boundary], float(fill_value),
-        build.stream_ptr(x.device),
-    )
-    build.check_status("xt_shift", status)
-    build.LAUNCHES["shift"] += 1
-    return out
+
+    def launch(x):
+        out = torch.empty_like(x)
+        status = build.load_library().xt_shift(
+            x.data_ptr(), out.data_ptr(), build.DTYPE_CODES[x.dtype],
+            outer, int(shape[axis]), inner,
+            _OPS[op], _DIRECTIONS[direction], _BCS[boundary], float(fill_value),
+            build.stream_ptr(x.device),
+        )
+        build.check_status("xt_shift", status)
+        build.LAUNCHES["shift"] += 1
+        return out
+
+    def plain(x):
+        return shift_plain(x, axis, op, direction, boundary, fill_value)
+
+    return build.PlainBackward.apply(launch, plain, x)
