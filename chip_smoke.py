@@ -22,6 +22,9 @@ face, 50 levels, float32):
 Each path runs with the launch counts set to 0 just before it and read just
 after; the script checks that every kernel of the path launched and that
 the results are right, and times each kernel beside its plain version.
+Kernels C and F are also held against their plain versions on columns built
+to break an interval search (``INTERP_CASES``), and F against V single
+calls of C bit for bit.
 
     python3 chip_smoke.py [--seed N]
 
@@ -245,6 +248,171 @@ def check_interp(check, gen, dev, th, ph, t):
     log("phase 3: interp_linear kernel matches its plain version")
 
 
+INTERP_CASES = (
+    "non-sorted", "nan-knots-inside", "duplicate-knots", "special-targets",
+    "descending-nan-ends", "no-flip-check", "all-nan-columns", "n2", "cols15", "cols16",
+    "cols17", "cols31", "cols32", "cols33", "cols63", "cols64", "cols65", "lanes-major",
+    "sliced-view", "broadcast-phi", "per-column-unsorted-targets", "shared-unsorted-targets",
+    "masked-edges",
+)
+
+
+def interp_case(label, gen, dev):
+    """Columns built to break an interval search, for kernels C and F: a
+    dict of theta (cols, n), four phis (cols, n) (phi 0 with NaN at some
+    valid knots), the target ((m,) or (cols, m)), mask_edges, check_flip and
+    out_T.  Column counts 15-17, 31-33 and 63-65 straddle the tile sizes
+    (16, 32, 64 columns) of ``csrc/interp_linear.cu``."""
+    nan, inf = float("nan"), float("inf")
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def mono(cols, n, desc_every=10):
+        th = torch.cumsum(rand(cols, n) * (25.0 / n) + 0.01, -1)  # 0 .. ~13
+        th[::desc_every] = th[::desc_every].flip(-1)
+        return th
+
+    t = torch.linspace(-1.0, 14.0, 36, device=dev)
+    mask_edges, check_flip, out_T, cols, n = False, True, False, 200, NZ
+    th = phis = None
+    if label == "non-sorted":
+        # zigzags and inversions (knots 20-23 falling) on a dyadic grid: knot
+        # steps 1/2, 1/4 or 1/8, phi in steps of 1/16, targets in steps of
+        # 1/32.  Targets match several intervals, and every sum is exact in
+        # float32, so the kernel (knot order) and the plain version (its own
+        # order) give the same value
+        k = torch.arange(n, device=dev)
+        steps = 2.0 ** -torch.randint(1, 4, (cols, n), generator=gen, device=dev).float()
+        zig = torch.where(k % 10 < 6, 1.0, -1.0)
+        inversion = torch.where((k >= 20) & (k < 24), -1.0, 1.0)
+        sign = torch.where((torch.arange(cols, device=dev) % 2 == 0)[:, None], zig, inversion)
+        th = torch.cumsum(steps * sign, -1) + 2.0
+        # ascending but for one swapped pair: the first two valid knots (some
+        # after a NaN head), or the last two
+        rising = torch.cumsum(steps, -1)
+        th[3::8], th[7::8] = rising[3::8], rising[7::8]
+        th[3::8, :2] = th[3::8, :2].flip(-1)
+        th[7::8, -2:] = th[7::8, -2:].flip(-1)
+        th[11::16, :3] = float("nan")
+        th[11::16, 3:5] = rising[11::16, 3:5].flip(-1)
+        phis = [torch.randint(0, 64, (cols, n), generator=gen, device=dev).float() / 16
+                for _ in range(4)]
+        t = torch.arange(36, device=dev) * (13 / 32) - 1.0
+    elif label == "nan-knots-inside":
+        th = mono(cols, n)
+        th[::2, 7] = nan
+        th[1::3, 20:22] = nan
+        th[5::7, n - 2] = nan
+    elif label == "duplicate-knots":
+        th = torch.round(mono(cols, n) * 2) / 2  # many repeated knots
+        t = torch.arange(-1.0, 14.0, 0.5, device=dev)  # every target on the knot grid
+    elif label == "special-targets":
+        th = mono(cols, n)
+        th[0:10, 0] = -inf  # th_min = -inf
+        th[10:20, -1] = inf  # th_max = +inf
+        th[20:30, 0] = -inf
+        th[20:30, 1] = -inf  # two -inf knots
+        k = torch.randint(0, n, (cols, 8), generator=gen, device=dev)
+        on_knots = torch.gather(th, 1, k)  # targets exactly on a knot
+        special = torch.tensor([nan, inf, -inf, 0.0], device=dev).expand(cols, 4)
+        t = torch.cat([on_knots, special, rand(cols, 8) * 15 - 1], -1)
+    elif label == "descending-nan-ends":
+        th = mono(cols, n, desc_every=1)
+        th[:, :3] = nan
+        th[::2, n - 4:] = nan
+        th[1::4, 3:6] = nan  # a longer head
+    elif label == "no-flip-check":
+        th = mono(cols, n, desc_every=2)  # half descending, taken as ascending
+        check_flip = False
+    elif label == "all-nan-columns":
+        th = mono(130, n)
+        th[::5] = nan
+    elif label == "n2":
+        th = mono(cols, 2) * 6
+    elif label.startswith("cols"):
+        th = mono(int(label[4:]), n)
+    elif label == "lanes-major":
+        th = mono(cols, n).T.contiguous().T
+        phis = [rand(n, cols).T for _ in range(4)]
+        out_T = True
+    elif label == "sliced-view":
+        th = mono(2 * cols, n + 10)[::2, 5:5 + n]  # column stride 2 (n + 10), knots 1
+        phis = [rand(2 * cols, n + 10)[::2, 5:5 + n] for _ in range(4)]
+    elif label == "broadcast-phi":
+        th = mono(cols, n)
+        phis = [rand(cols)[:, None].expand(cols, n) for _ in range(4)]
+    elif label == "per-column-unsorted-targets":
+        th = mono(cols, n)
+        t = rand(cols, 36) * 15 - 1
+    elif label == "shared-unsorted-targets":
+        th = mono(cols, n)
+        t = torch.cat([t, torch.tensor([nan, inf, -inf, 0.0, 13.0], device=dev)])
+        t = t[torch.randperm(t.shape[0], generator=gen, device=dev)]
+    elif label == "masked-edges":
+        th = mono(cols, n)
+        th[::4, :5] = nan
+        mask_edges = True
+    else:
+        raise ValueError(f"unknown case {label}")
+    if phis is None:
+        phis = [rand(*th.shape) for _ in range(4)]
+    if phis[0].stride(1) != 0:
+        phis[0][::7, th.shape[1] // 2] = nan
+    return dict(theta=th, phis=phis, target=t, mask_edges=mask_edges, check_flip=check_flip,
+                out_T=out_T)
+
+
+def interp_multi_exact_inputs(gen, dev, cols=300, n=NZ):
+    """Eight phis on a mix of sorted, descending, non-sorted and NaN-knot
+    columns (phi NaN at some valid knots), for F against single calls of
+    C bit for bit."""
+    th = torch.cumsum(torch.rand((cols, n), generator=gen, device=dev) * 0.5 + 0.01, -1)
+    th[::10] = th[::10].flip(-1)
+    th[1::10] = torch.rand((len(range(1, cols, 10)), n), generator=gen, device=dev) * 13
+    th[2::10, 17] = float("nan")
+    phis = [torch.rand((cols, n), generator=gen, device=dev) for _ in range(8)]
+    phis[3][::9, 20] = float("nan")
+    return th, phis, torch.linspace(-1.0, 14.0, 36, device=dev)
+
+
+def check_interp_cases(check, gen, dev):
+    """Kernels C and F on every case of :data:`INTERP_CASES` against their
+    plain versions (f32 rtol = atol = 1e-6, bf16 rtol 1e-2 / atol 1e-5,
+    identical NaN and infinity footprints), and F bit for bit against V
+    single calls of C at V = 2, 4, 8 (f32)."""
+    from xgcm_tpu_torch.ops.kernels import interp_linear as k
+
+    for label in INTERP_CASES:
+        case = interp_case(label, gen, dev)
+        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            th, t = case["theta"].to(dtype), case["target"].to(dtype)
+            phis = [p.to(dtype) for p in case["phis"]]
+            args = (case["mask_edges"], case["check_flip"])
+            tag = f"{label}/{dtype}"
+            got = k.interp_linear(th, phis[0], t, *args, out_T=case["out_T"])
+            got = got.T if case["out_T"] else got
+            want = k._fused_multi_ref_torch(th, phis, t, *args)
+            check.compare("interp_linear", tag, got.float(), want[0].float(), **tol)
+            multi = k.interp_linear_multi(th, phis, t, *args, out_T=case["out_T"])
+            for v, (o, w) in enumerate(zip(multi, want)):
+                o = o.T if case["out_T"] else o
+                check.compare("interp_linear_multi", f"{tag}/var {v}", o.float(), w.float(),
+                              **tol)
+    th, phis, t = interp_multi_exact_inputs(gen, dev)
+    for nv in (2, 4, 8):
+        multi = k.interp_linear_multi(th, phis[:nv], t)
+        for v, o in enumerate(multi):
+            if not torch.equal(o.view(torch.int32), k.interp_linear(th, phis[v], t).view(
+                    torch.int32)):
+                raise AssertionError(f"interp_linear_multi [V={nv}/var {v}]: not bit for bit "
+                                     f"equal to kernel C")
+    torch.cuda.synchronize()
+    log(f"phase 3: interp_linear and interp_linear_multi match their plain versions on "
+        f"{len(INTERP_CASES)} search-breaking cases (f32, bf16); F == V calls of C bit for "
+        f"bit at V = 2, 4, 8")
+
+
 def check_main_path(check, gen, dev, outputs, ug, vg, theta, targets):
     """The step's results: shapes, finiteness, the fused diagnostics equal
     to the separate Grid ops, the shifts equal to the roll formulation,
@@ -299,12 +467,14 @@ def check_main_path(check, gen, dev, outputs, ug, vg, theta, targets):
         "sampled columns == plain, np.interp oracle, card == CPU)")
 
 
-def linear_bound(cols, nv, n=NZ, m=N_TARGETS):
+def linear_bound(cols, nv, n=NZ, m=N_TARGETS, broadcast_phi=False):
     """Kernels C (nv = 1) and F on (cols, n) columns onto m shared levels:
-    theta and the nv phis read once, the targets, the nv outputs written
-    once; a merge of the sorted knots and levels needs about 2 (n + m)
-    compares and 3 m operations per variable for each column."""
-    nbytes = (cols * n * (1 + nv) + m + nv * cols * m) * 4
+    theta and the nv phis read once (a phi broadcast along the column, knot
+    stride 0 as on the step, one value per column), the targets, the nv
+    outputs written once; a merge of the sorted knots and levels needs about
+    2 (n + m) compares and 3 m operations per variable for each column."""
+    phi_values = 1 if broadcast_phi else n
+    nbytes = (cols * (n + nv * phi_values) + m + nv * cols * m) * 4
     return bound(nbytes, cols * (2 * (n + m) + 3 * m * nv))
 
 
@@ -750,6 +920,12 @@ def main(argv=None) -> int:
     spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", ptxas))
     log(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}; {len(regs)} kernels, "
         f"registers {min(regs)}-{max(regs)}, spill stores {spills} bytes")
+    per_kernel = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", ptxas,
+                            re.S)
+    interp_regs = [int(r) for fn, r in per_kernel if "interp_linear_kernel" in fn]
+    if interp_regs:
+        log(f"build: interp_linear.cu, {len(interp_regs)} instantiations (NV = 1..8 x 4 dtype "
+            f"pairs), registers {min(interp_regs)}-{max(interp_regs)}")
 
     # ---- phase 3: each kernel against its plain version ---------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -765,6 +941,7 @@ def main(argv=None) -> int:
     th_c, ph_c = columns(gen, dev, 512 * 512, NZ)
     t_c = torch.linspace(-1.0, 27.0, N_TARGETS, device=dev)
     check_interp(check, gen, dev, th_c, ph_c, t_c)
+    check_interp_cases(check, gen, dev)
     dens_sample = check_density_kernels(check, gen, dev)
     torch.cuda.synchronize()
 
@@ -820,17 +997,29 @@ def main(argv=None) -> int:
         f"plain {times['cgrid_diagnostics'][1]:.4f} ms [{card}]")
     # u, v and the three outputs; about 12 operations per point
     bounds["cgrid_diagnostics"] = bound((5 * n_face + NX + NY) * 4, 12 * n_face)
-    times["interp_linear"] = time_pair(lambda: interp_linear(th_c, ph_c, t_c),
-                                       lambda: _fused_ref_torch(th_c, ph_c, t_c), reps=5)
+    k_ms, p_ms = time_pair(lambda: interp_linear(th_c, ph_c, t_c),
+                           lambda: _fused_ref_torch(th_c, ph_c, t_c), reps=5)
+    b_ms, b_by = linear_bound(th_c.shape[0], 1)
     log(f"time interp_linear {th_c.shape[0]} cols x {NZ} knots -> {N_TARGETS} f32: kernel "
-        f"{times['interp_linear'][0]:.4f} ms, plain {times['interp_linear'][1]:.4f} ms [{card}]")
-    bounds["interp_linear"] = linear_bound(th_c.shape[0], 1)
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
     cols = NY * NX
     ke_cols = d_ke.data[..., None].expand(NY, NX, NZ).reshape(cols, NZ)
     th_main = theta.reshape(cols, NZ)
     k_main, _ = time_pair(lambda: interp_linear(th_main, ke_cols, targets), reps=3)
-    log(f"time interp_linear main path {cols} cols x {NZ} knots -> {N_TARGETS} f32: "
-        f"kernel {k_main:.4f} ms, plain not measured (needs the (cols, m, n) tensor) [{card}]")
+    chunk = th_c.shape[0]
+
+    def plain_main():  # the plain version one sample-sized slice of columns at a time
+        for s in range(0, cols, chunk):
+            _fused_ref_torch(th_main[s:s + chunk], ke_cols[s:s + chunk], targets)
+
+    p_main, _ = time_pair(plain_main, reps=1)
+    times["interp_linear"] = (k_main, p_main)
+    # the step's phi is KE broadcast along the column: one value per column
+    bounds["interp_linear"] = linear_bound(cols, 1, broadcast_phi=True)
+    log(f"time interp_linear main path {cols} cols x {NZ} knots -> {N_TARGETS} f32, phi "
+        f"broadcast: kernel {k_main:.4f} ms, plain {p_main:.4f} ms (in slices of {chunk} "
+        f"columns), bound {bounds['interp_linear'][0]:.4f} ms ({bounds['interp_linear'][1]}) "
+        f"[{card}]")
     step_ms, _ = time_pair(lambda: step(ug, vg, theta, targets, grid=grid), reps=3)
     diag_ms, _ = time_pair(lambda: diagnostics_op(grid, gu, gv))
     log(f"time step {NY}x{NX}x{NZ} -> {N_TARGETS} f32: {step_ms:.4f} ms; "
@@ -922,13 +1111,14 @@ def main(argv=None) -> int:
         "interp_linear_multi": (lambda: kc.interp_linear_multi(s_c, s_phis, s_levels, True),
                                 lambda: kc._fused_multi_ref_torch(s_c, s_phis, s_levels, True)),
     }
-    for name, (kernel_fn, plain_fn) in pairs.items():
-        times[name] = time_pair(kernel_fn, plain_fn, reps=5)
-        log(f"time {name} {s_cols} cols x {NZ} levels, V = {1 if name == 'conservative' else NV}"
-            f" f32: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms [{card}]")
     bounds["conservative"] = conservative_bound(s_cols, 1)
     bounds["conservative_multi"] = conservative_bound(s_cols, NV)
     bounds["interp_linear_multi"] = linear_bound(s_cols, NV)
+    for name, (kernel_fn, plain_fn) in pairs.items():
+        times[name] = time_pair(kernel_fn, plain_fn, reps=5)
+        log(f"time {name} {s_cols} cols x {NZ} levels, V = {1 if name == 'conservative' else NV}"
+            f" f32: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, bound "
+            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}) [{card}]")
     b2, c2 = sig_b.reshape(cols, NZ + 1), sig_c.reshape(cols, NZ)
     f2 = [f.reshape(cols, NZ) for f in fields]
     face = {

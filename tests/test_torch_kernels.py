@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import xgcm_tpu_torch as xtt
 from tests.torch_parity import assert_close
 from xgcm_tpu_torch.core import device as port_device
@@ -41,6 +42,7 @@ from xgcm_tpu_torch.ops.kernels.cgrid_diagnostics import (
     cgrid_diagnostics_plain,
 )
 from xgcm_tpu_torch.ops.kernels.interp_linear import (
+    _fused_multi_ref_torch,
     _fused_ref_torch,
     interp_linear,
     interp_linear_multi,
@@ -393,6 +395,41 @@ def test_interp_multi_kernel_matches_singles(cuda, mask_edges, per_column, dtype
         assert_close(o.float(), single.float(), **tol)
         assert_close(oT.T.float(), single.float(), **tol)
         assert_close(o.float(), _fused_ref_torch(th, p, t, mask_edges).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label", chip_smoke.INTERP_CASES)
+def test_interp_kernels_on_search_cases(cuda, label, dtype):
+    """Kernels C and F (V = 4) against their plain versions on the columns
+    of ``chip_smoke.interp_case``, built to break an interval search:
+    non-sorted columns, NaN knots inside the range, duplicate knots, NaN and
+    infinite targets and targets on a knot, descending columns with NaN
+    ends, all-NaN columns, n = 2, column counts around each tile size,
+    lanes-major inputs with ``out_T``, sliced views, broadcast phis and
+    unsorted shared and per-column targets."""
+    case = chip_smoke.interp_case(label, torch.Generator(device=cuda).manual_seed(8), cuda)
+    th, t = case["theta"].to(dtype), case["target"].to(dtype)
+    phis = [p.to(dtype) for p in case["phis"]]
+    args = (case["mask_edges"], case["check_flip"])
+    out_T = case["out_T"]
+    tol = dict(rtol=1e-2, atol=1e-5) if dtype == torch.bfloat16 else dict(rtol=1e-6, atol=1e-6)
+    want = _fused_multi_ref_torch(th, phis, t, *args)
+    single = interp_linear(th, phis[0], t, *args, out_T=out_T)
+    assert_close((single.T if out_T else single).float(), want[0].float(), **tol)
+    for o, w in zip(interp_linear_multi(th, phis, t, *args, out_T=out_T), want):
+        assert_close((o.T if out_T else o).float(), w.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [2, 4, 8])
+def test_interp_multi_kernel_equals_singles_bitwise(cuda, nv):
+    """Kernel F computes each variable with kernel C's code: its outputs
+    equal V single calls bit for bit in float32."""
+    th, phis, t = chip_smoke.interp_multi_exact_inputs(
+        torch.Generator(device=cuda).manual_seed(9), cuda)
+    for o, p in zip(interp_linear_multi(th, phis[:nv], t), phis):
+        assert torch.equal(o.view(torch.int32), interp_linear(th, p, t).view(torch.int32))
 
 
 def _cuda_cells(cuda, cols, n, seed):

@@ -23,22 +23,80 @@
 // folded with 1e35 to carry the NaN flag, all because the TPU gives
 // 0 * inf = NaN inside masked sums) are not carried over: this kernel selects
 // with branches, keeps +inf and a separate NaN flag.  On a non-monotone
-// column every matching interval contributes, as in _fused_ref_jnp's
-// membership sums, so the kernel agrees with its plain version everywhere;
-// F does the same per variable, so on every column it gives what V calls of
-// C give (the TPU multi kernel's last-writer-wins select is not carried
-// over).  In F the knot compares, the interval and the theta sums are
-// shared; each variable adds its own phi reads, slope and NaN flag.
+// column every matching interval contributes, as in the plain version's
+// membership sums (_fused_multi_ref_torch), so the kernel agrees with it
+// everywhere; F computes each variable with C's code, so on every column it
+// gives what V calls of C give, bit for bit (the TPU multi kernel's
+// last-writer-wins select is not carried over).
 //
-// Bound on the card: memory, ((1 + V) n + V m) * cols * itemsize bytes when
-// theta, the V phis and the outputs are all distinct (a phi broadcast along
-// the column, knot stride 0, reads one value per column).  Design: one thread per
-// column; a first pass over the knots finds the first/last valid knot and
-// the range, then each target scans the knots again.  Columns are addressed
-// through (column, knot) strides, so (cols, n) and lanes-major (n, cols)
-// views and broadcast views all run without a copy; the lanes-major layout
-// (column stride 1) is the coalesced one.  Arithmetic is float; 16-bit
-// inputs widen at the load and the output rounds once at the store.
+// Bound on the card: memory.  Each call must move ((1 + V) n + V m) * cols
+// * itemsize bytes when theta, the V phis and the outputs are all distinct;
+// a phi broadcast along the column (knot stride 0, the step's kinetic
+// energy) reads one value per column, so the step's remap moves
+// (n + 1 + m) * cols * 4 bytes.  About 0.4 operations per byte at V = 4,
+// against the card's ~20 for float32 outside the tensor cores; the tensor
+// cores have no role (there is no product).
+//
+// Design.  A block of 128 threads takes a tile of TC consecutive columns
+// (TC = 64, halved while the tile would pass kTileBudget bytes: at n = 50
+// TC = 64 for C and for F at V = 2, 32 at V = 3..6, 16 at V = 7..8; down to
+// 1 for very deep columns).  Small blocks, eight to an SM, keep the staging,
+// the prepass and the items of different blocks overlapping.
+//   1. Staging.  theta and each phi of the tile go to shared memory as
+//      float (16-bit inputs widen here) by cp.async, so all of a block's
+//      copies are in flight at once.  A contiguous tile (the row-major
+//      (cols, n) layout, one run of TC * n values) goes in 16-byte copies
+//      into rows of n words; any other layout goes element by element into
+//      rows of n | 1 words, consecutive threads on consecutive elements along
+//      the smaller of the column and knot strides, so the lanes-major
+//      (n, cols) layout and strided views load coalesced too.  A phi with
+//      knot stride 0 loads one value per column.  Addresses are a 64-bit
+//      base per tile plus offsets stepped without division; after the
+//      staging everything indexes shared memory with 32-bit ints.
+//   2. Prepass, one thread per column: the first and last valid knot, the
+//      valid range [th_min, th_max], the direction, and whether the column
+//      is sorted: every knot from the first to the last valid one is valid
+//      and theta_eff = theta * dsign does not decrease.  A descending
+//      column's row is negated in place, so rows hold theta_eff, NaN kept.
+//   3. Work items.  Each thread takes (column, target) items, numbered along
+//      the output's smaller stride (target-fastest for (cols, m) outputs,
+//      column-fastest for the out_T (m, cols) layout), so consecutive threads
+//      write consecutive addresses; per-column targets are read with the same
+//      mapping.  A target that a clamp or the edge mask decides needs no
+//      interval.  On a sorted column at most one interval matches, so a
+//      binary search over [first, last] for the last knot with
+//      theta_eff <= t_eff finds it (~6 steps at n = 50 instead of 50
+//      compares).  Its boundary cases, each giving what the full scan gives:
+//        - t_eff NaN or +inf: no interval matches (the scan's
+//          !(theta_eff[k+1] <= t_eff) fails for every k), r = fma(t_eff, 0,
+//          0) = NaN, then the clamps decide;
+//        - t_eff below theta_eff[first]: no interval matches;
+//        - NaN heads (k < first) never match; NaN tails (k > last) are +inf,
+//          so the search never reaches them, and the interval at last ends
+//          on a +inf knot (slope 0, as in the scan);
+//        - duplicate knots and a target exactly on a knot: the last knot
+//          with theta_eff <= t_eff is the scan's only match;
+//        - t_eff = -inf on a column whose first valid knot is -inf: the
+//          last -inf knot matches, as in the scan, and gives NaN.
+//      The result is fma(t_eff - theta_k, slope, phi_k) with an explicit
+//      __fmaf_rn, as the scan's one-term sums give it (only the sign of a
+//      zero can differ).  A column that is not sorted (non-monotone, or a
+//      NaN knot inside the valid range) keeps the full scan over its row in
+//      shared memory, every matching interval summed in knot order.
+//   4. F shares the search: the interval and the theta terms are found once
+//      per item, then a loop over the V phi tiles (all staged in step 1)
+//      computes and stores each variable with C's code (value()), so F's
+//      registers do not grow with V and F equals V calls of C bit for bit.
+// Shared memory per block: TC * (16 + 4 r (1 + V') + 4 V'') bytes, r = n or
+// n | 1, V' phis staged in full and V'' broadcast (C on the step: 14,336
+// bytes at TC = 64; F at V = 4 and n = 50: 33,152 bytes at TC = 32).
+// Registers (-Xptxas -v, the build line of chip_smoke.py): 50-64 per thread
+// over the 32 instantiations, capped at 64 by __launch_bounds__(128, 8) so
+// that eight blocks fit an SM; the cap costs some instantiations a few
+// spill stores (164 bytes over the whole library).
+// Limit: a block must hold at least one column, so n is bounded by about
+// 227 KB / (4 (1 + V)) (28,000 knots for C, 6,300 for F at V = 8); deeper
+// columns get cudaErrorInvalidValue, and the wrapper raises.
 #include <math.h>
 
 #include <cfloat>
@@ -47,127 +105,348 @@
 
 namespace {
 
-template <int NV, typename TH, typename PH>
-__global__ void interp_linear_kernel(
-    const TH* __restrict__ th, const xt::VarSet<PH> vars, const float* __restrict__ tg,
-    long long cols, long long n, long long m, long long th_cs, long long th_ks,
-    long long t_cs, long long t_ms, long long o_cs, long long o_ms,
-    int mask_edges, int check_flip) {
-  const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  const TH* thc = th + c * th_cs;
-  const float* tc = tg + c * t_cs;
-  const PH* phc[NV];
-  PH* oc[NV];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    phc[v] = vars.in[v] + c * vars.cs[v];
-    oc[v] = vars.out[v] + c * o_cs;
-  }
-  const float inf = INFINITY;
-  const float nan = NAN;
+constexpr int kThreads = 128;
+constexpr int kMaxTile = 64;             // columns a block takes at most
+constexpr int kTileBudget = 48 * 1024;   // shared bytes a tile aims to stay under
+constexpr int kMaxShared = 227 * 1024;   // what one block may have on the H100
 
-  // pass 1: first/last valid knot and the valid range
-  long long first = -1, last = -1;
-  float th_min = inf, th_max = -inf;
-  for (long long k = 0; k < n; ++k) {
-    const float v = xt::to_compute(thc[k * th_ks]);
-    if (!isnan(v)) {
-      if (first < 0) first = k;
-      last = k;
-      th_min = fminf(th_min, v);
-      th_max = fmaxf(th_max, v);
-    }
-  }
-  if (first < 0) {  // all-NaN column
-    for (long long j = 0; j < m; ++j) {
-#pragma unroll
-      for (int v = 0; v < NV; ++v) oc[v][j * o_ms] = xt::from_compute<PH>(nan);
-    }
-    return;
-  }
-  bool desc = false;
-  if (check_flip) {
-    // compared as nan_to_num would leave them (infinities clamp to FLT_MAX)
-    const float f = fminf(fmaxf(xt::to_compute(thc[first * th_ks]), -FLT_MAX), FLT_MAX);
-    const float l = fminf(fmaxf(xt::to_compute(thc[last * th_ks]), -FLT_MAX), FLT_MAX);
-    desc = l < f;
-  }
-  const float dsign = desc ? -1.0f : 1.0f;
-  float lo_ph[NV], hi_ph[NV];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    const float first_ph = xt::to_compute(phc[v][first * vars.ks[v]]);
-    const float last_ph = xt::to_compute(phc[v][last * vars.ks[v]]);
-    lo_ph[v] = desc ? last_ph : first_ph;
-    hi_ph[v] = desc ? first_ph : last_ph;
-  }
+// Per column: the first valid knot (< 0: all NaN); the last valid knot with
+// the direction and sortedness flags above it; the valid range.
+constexpr int kDesc = 1 << 30, kSorted = 1 << 29, kIndex = kSorted - 1;
+struct alignas(16) ColMeta {
+  int first, info;
+  float th_min, th_max;
+};
 
-  for (long long j = 0; j < m; ++j) {
-    const float t = tc[j * t_ms];
-    const float te = t * dsign;
-    float acc_th = 0.0f;
-    float acc_ph[NV], acc_s[NV];
-    bool nan_sel[NV];
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      acc_ph[v] = 0.0f;
-      acc_s[v] = 0.0f;
-      nan_sel[v] = false;
+// A 4-byte copy from device memory into shared memory that does not wait:
+// the block waits for all of its copies at once (wait_copies).
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// The same for 16 bytes (both addresses 16-byte aligned).
+__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A (tc, nk) tile, element (c, k) at src[c * cs + k * ks], into
+// dst[c * ds + k] as float.  Consecutive threads take consecutive elements
+// along the smaller stride; the (outer, inner) position steps by the block
+// size without a division per element.  float32 goes by copy_async, so every
+// element of every tile of the block is in flight at once; 16-bit values are
+// loaded eight at a time per thread, then widened and stored.
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, long long cs, long long ks,
+                                          int tc, int nk, float* dst, int ds) {
+  constexpr bool kAsync = sizeof(T) == sizeof(float);
+  constexpr int kBatch = kAsync ? 1 : 8;
+  if constexpr (kAsync) {
+    // a contiguous tile into an unpadded one: 16-byte copies
+    if (ks == 1 && cs == nk && ds == nk &&
+        ((reinterpret_cast<unsigned long long>(src) | reinterpret_cast<unsigned long long>(dst)) &
+         15) == 0) {
+      const float* from = reinterpret_cast<const float*>(src);
+      const int total = tc * nk, vec = total / 4;
+      for (int i = threadIdx.x; i < vec; i += blockDim.x) copy_async16(dst + 4 * i, from + 4 * i);
+      for (int i = 4 * vec + threadIdx.x; i < total; i += blockDim.x) copy_async(dst + i, from + i);
+      return;
     }
-    // knot k in effective space: valid -> theta * dsign, NaN -> +inf
-    float th_raw = xt::to_compute(thc[0]);
-    float th_k = isnan(th_raw) ? inf : th_raw * dsign;
-    for (long long k = 0; k < n; ++k) {
-      float th_k1 = inf;
-      float th1_raw = nan;
-      if (k + 1 < n) {
-        th1_raw = xt::to_compute(thc[(k + 1) * th_ks]);
-        th_k1 = isnan(th1_raw) ? inf : th1_raw * dsign;
-      }
-      if (th_k <= te && !(th_k1 <= te)) {
-        const float dth = th_k1 - th_k;
-        const bool ok = dth > 0.0f && dth < inf;
-        acc_th += th_k;
+  }
+  const bool knots_fast = llabs(ks) <= llabs(cs);
+  const int inner = knots_fast ? nk : tc;
+  const long long s_in = knots_fast ? ks : cs, s_out = knots_fast ? cs : ks;
+  const int d_in = knots_fast ? 1 : ds, d_out = knots_fast ? ds : 1;
+  const int step_o = blockDim.x / inner, step_i = blockDim.x - step_o * inner;
+  int o = threadIdx.x / inner, i = threadIdx.x - o * inner;
+  for (int e = threadIdx.x; e < tc * nk; e += kBatch * blockDim.x) {
+    T val[kBatch];
+    int at[kBatch];
 #pragma unroll
-        for (int v = 0; v < NV; ++v) {
-          const PH* pv = phc[v];
-          const long long ks = vars.ks[v];
-          const float p_raw = xt::to_compute(pv[k * ks]);
-          const float p1_raw = (k + 1 < n) ? xt::to_compute(pv[(k + 1) * ks]) : 0.0f;
-          const float p = isnan(p_raw) ? 0.0f : p_raw;
-          const float p1 = isnan(p1_raw) ? 0.0f : p1_raw;
-          acc_ph[v] += p;
-          acc_s[v] += ok ? (p1 - p) / dth : 0.0f;
-          // NaN data at a valid knot (k or k+1) propagates into this interval
-          nan_sel[v] |= (isnan(p_raw) && !isnan(th_raw)) ||
-                        (k + 1 < n && isnan(p1_raw) && !isnan(th1_raw));
+    for (int u = 0; u < kBatch; ++u) {
+      at[u] = -1;
+      if (e + u * (int)blockDim.x < tc * nk) {
+        const T* from = src + (o * s_out + i * s_in);
+        at[u] = o * d_out + i * d_in;
+        if constexpr (kAsync) {
+          copy_async(dst + at[u], reinterpret_cast<const float*>(from));
+        } else {
+          val[u] = *from;
         }
       }
-      th_raw = th1_raw;
-      th_k = th_k1;
+      o += step_o;
+      i += step_i;
+      if (i >= inner) {
+        i -= inner;
+        ++o;
+      }
     }
+    if constexpr (!kAsync) {
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (at[u] >= 0) dst[at[u]] = xt::to_compute(val[u]);
+      }
+    }
+  }
+}
+
+// The full scan of a column that is not sorted: every interval with
+// theta_eff[k] <= te < theta_eff[k+1] adds its terms, in knot order, as the
+// plain version's membership sums do.
+__device__ float scan_row(const float* row, const float* ph, int pks, int n, float te) {
+  float acc_th = 0.0f, acc_ph = 0.0f, acc_s = 0.0f;
+  bool nan_sel = false;
+  for (int k = 0; k < n; ++k) {
+    const float s = row[k], s1 = (k + 1 < n) ? row[k + 1] : NAN;
+    const float e = fminf(s, INFINITY), e1 = fminf(s1, INFINITY);  // NaN -> +inf
+    if (!(e <= te) || e1 <= te) continue;
+    const float dth = e1 - e;
+    const float p_raw = ph[k * pks];
+    const float p1_raw = (k + 1 < n) ? ph[(k + 1) * pks] : 0.0f;
+    const float p = isnan(p_raw) ? 0.0f : p_raw;
+    const float p1 = isnan(p1_raw) ? 0.0f : p1_raw;
+    acc_th += e;
+    acc_ph += p;
+    acc_s += (dth > 0.0f && dth < INFINITY) ? (p1 - p) / dth : 0.0f;
+    // NaN data at a valid knot (k or k+1) propagates into this interval
+    nan_sel |= (isnan(p_raw) && !isnan(s)) || (isnan(p1_raw) && !isnan(s1));
+  }
+  return nan_sel ? NAN : __fmaf_rn(te - acc_th, acc_s, acc_ph);
+}
+
+// On a sorted column (no NaN in [lo, last]), the last knot in [lo, last]
+// with theta_eff <= te, given theta_eff[lo] <= te.
+__device__ __forceinline__ int search(const float* row, int lo, int last, float te) {
+  int len = last - lo + 1;
+  while (len > 1) {
+    const int half = len >> 1;
+    if (row[lo + half] <= te) lo += half;
+    len -= half;
+  }
+  return lo;
+}
+
+// The prepass of one column row in shared memory: first and last valid
+// knot, the valid range, the direction and whether the column is sorted
+// (every knot from the first to the last valid one valid, and theta_eff not
+// decreasing).  A descending row is negated in place, so the row then holds
+// theta_eff with NaN kept.
+__device__ __forceinline__ ColMeta prepare_column(float* row, int n, int check_flip) {
+  int first = -1, last = -1;
+  float mn = INFINITY, mx = -INFINITY, prev = 0.0f;
+  bool up = true, down = true, hole = false, gap = false;
+  for (int k = 0; k < n; ++k) {
+    const float v = row[k];
+    if (isnan(v)) {
+      hole |= first >= 0;  // a NaN after the first valid knot ...
+      continue;
+    }
+    if (first < 0) {
+      first = k;
+    } else {
+      up &= v >= prev;
+      down &= v <= prev;
+      gap |= hole;  // ... with a valid knot after it
+    }
+    last = k;
+    mn = fminf(mn, v);
+    mx = fmaxf(mx, v);
+    prev = v;
+  }
+  int info = last < 0 ? 0 : last;
+  if (first >= 0) {
+    bool desc = false;
+    if (check_flip) {
+      // compared as nan_to_num would leave them (infinities clamp to FLT_MAX)
+      const float f = fminf(fmaxf(row[first], -FLT_MAX), FLT_MAX);
+      const float l = fminf(fmaxf(row[last], -FLT_MAX), FLT_MAX);
+      desc = l < f;
+    }
+    if (desc) {
+      for (int k = first; k <= last; ++k) row[k] = -row[k];
+      info |= kDesc;
+    }
+    if (!gap && (desc ? down : up)) info |= kSorted;
+  }
+  return ColMeta{first, info, mn, mx};
+}
+
+// A target against a column: its effective value and which clamp, if any,
+// decides its result.
+struct Where {
+  float te;
+  bool below, above, masked, interior;
+};
+
+__device__ __forceinline__ Where where(const ColMeta& cm, float t, int mask_edges) {
+  Where w;
+  w.te = (cm.info & kDesc) ? -t : t;
+  w.below = t < cm.th_min;
+  w.above = t >= cm.th_max;
+  w.masked = mask_edges && (w.below || t > cm.th_max);
+  w.interior = !(w.below || w.above || w.masked);
+  return w;
+}
+
+// Whether a target needs the interval of a sorted column; then
+// theta_eff[first] <= te < +inf.
+__device__ __forceinline__ bool searched(const ColMeta& cm, const float* row, const Where& w) {
+  return w.interior && (cm.info & kSorted) && w.te < INFINITY && row[cm.first] <= w.te;
+}
+
+// The theta side of interval k of a sorted column (k < 0: none matches),
+// shared by the variables.
+struct Side {
+  int k;
+  bool nxt, ok;
+  float e0, dth;
+};
+
+__device__ __forceinline__ Side side(const float* row, int k, int last) {
+  Side sd;
+  sd.k = k;
+  sd.nxt = k >= 0 && k < last;
+  sd.e0 = k >= 0 ? row[k] : 0.0f;
+  sd.dth = k >= 0 ? (sd.nxt ? row[k + 1] : INFINITY) - sd.e0 : 0.0f;
+  sd.ok = sd.dth > 0.0f && sd.dth < INFINITY;
+  return sd;
+}
+
+// The result of one variable (phi row ph, knot stride pks) at one target.
+// C and F compute it with this code, so F equals V calls of C bit for bit.
+__device__ __forceinline__ float value(const float* row, const float* ph, int pks, int n,
+                                       const ColMeta& cm, const Where& w, const Side& sd) {
+  const int first = cm.first, last = cm.info & kIndex;
+  const bool desc = cm.info & kDesc;
+  float r = 0.0f;
+  if (w.interior && !(cm.info & kSorted)) {
+    r = scan_row(row, ph, pks, n, w.te);
+  } else if (w.interior) {
+    float p0 = 0.0f, s = 0.0f;
+    bool bad = false;
+    if (sd.k >= 0) {
+      const float p_raw = ph[sd.k * pks];
+      const float p1_raw = sd.nxt ? ph[(sd.k + 1) * pks] : 0.0f;
+      p0 = isnan(p_raw) ? 0.0f : p_raw;
+      const float p1 = isnan(p1_raw) ? 0.0f : p1_raw;
+      s = sd.ok ? (p1 - p0) / sd.dth : 0.0f;
+      // NaN data at a valid knot (k or k+1) propagates into the interval
+      bad = isnan(p_raw) || isnan(p1_raw);
+    }
+    r = bad ? NAN : __fmaf_rn(w.te - sd.e0, s, p0);
+  }
+  if (w.below) r = ph[(desc ? last : first) * pks];
+  if (w.above) r = ph[(desc ? first : last) * pks];
+  if (w.masked) r = NAN;
+  return r;
+}
+
+template <int NV, typename TH, typename PH>
+__global__ void __launch_bounds__(kThreads, 8) interp_linear_kernel(
+    const TH* __restrict__ th, const xt::VarSet<PH> vars, const float* __restrict__ tg,
+    long long cols, int n, int m, int tile, long long th_cs, long long th_ks, long long t_cs,
+    long long t_ms, long long o_cs, long long o_ms, int mask_edges, int check_flip) {
+  extern __shared__ float smem[];
+  const long long c0 = (long long)blockIdx.x * tile;
+  const int tc = (int)min((long long)tile, cols - c0);
+  // rows as in a contiguous theta (16-byte copies), else of an odd length
+  const int rs = (th_ks == 1 && th_cs == n) ? n : (n | 1);
+  ColMeta* meta = reinterpret_cast<ColMeta*>(smem);
+  float* th_s = smem + tile * (int)(sizeof(ColMeta) / sizeof(float));
+  float* ph_base = th_s + tile * rs;
+
+  // 1. stage theta and the phis
+  load_tile(th + c0 * th_cs, th_cs, th_ks, tc, n, th_s, rs);
+  {
+    float* p = ph_base;
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
-      float r = acc_ph[v] + (te - acc_th) * acc_s[v];
-      if (nan_sel[v]) r = nan;
-      if (t < th_min) r = lo_ph[v];
-      if (t >= th_max) r = hi_ph[v];
-      if (mask_edges && (t < th_min || t > th_max)) r = nan;
-      oc[v][j * o_ms] = xt::from_compute<PH>(r);
+      const bool bc = vars.ks[v] == 0;
+      load_tile(vars.in[v] + c0 * vars.cs[v], vars.cs[v], vars.ks[v], tc, bc ? 1 : n, p,
+                bc ? 1 : rs);
+      p += bc ? tile : tile * rs;
+    }
+  }
+  wait_copies();
+  __syncthreads();
+
+  // 2. the prepass, one thread per column
+  for (int c = threadIdx.x; c < tc; c += blockDim.x)
+    meta[c] = prepare_column(th_s + c * rs, n, check_flip);
+  __syncthreads();
+
+  // 3. (column, target) items numbered along the output's smaller stride
+  const bool tgt_fast = llabs(o_ms) <= llabs(o_cs);
+  const int inner = tgt_fast ? m : tc;
+  const int step_a = blockDim.x / inner, step_b = blockDim.x - step_a * inner;
+  int a = threadIdx.x / inner, b = threadIdx.x - a * inner;
+  for (int e = threadIdx.x; e < tc * m; e += blockDim.x) {
+    const int c = tgt_fast ? a : b, j = tgt_fast ? b : a;
+    a += step_a;
+    b += step_b;
+    if (b >= inner) {
+      b -= inner;
+      ++a;
+    }
+    const long long gc = c0 + c;
+    const long long o = gc * o_cs + j * o_ms;
+    const ColMeta cm = meta[c];
+    if (cm.first < 0) {  // all-NaN column
+#pragma unroll
+      for (int v = 0; v < NV; ++v) vars.out[v][o] = xt::from_compute<PH>(NAN);
+      continue;
+    }
+    const float* row = th_s + c * rs;
+    const int last = cm.info & kIndex;
+    const Where w = where(cm, tg[gc * t_cs + j * t_ms], mask_edges);
+    // 4. the one interval of a sorted column, shared by the variables
+    const int k = searched(cm, row, w) ? search(row, cm.first, last, w.te) : -1;
+    const Side sd = side(row, k, last);
+    const float* p = ph_base;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const bool bc = vars.ks[v] == 0;
+      vars.out[v][o] =
+          xt::from_compute<PH>(value(row, p + (bc ? c : c * rs), bc ? 0 : 1, n, cm, w, sd));
+      p += bc ? tile : tile * rs;
     }
   }
 }
 
 template <int NV, typename TH, typename PH>
-void launch(const void* th, const xt::VarSet<PH>& vars, const float* tg, long long cols,
-            long long n, long long m, long long th_cs, long long th_ks, long long t_cs,
-            long long t_ms, long long o_cs, long long o_ms, int mask_edges, int check_flip,
-            cudaStream_t stream) {
-  const int threads = 128;
-  interp_linear_kernel<NV, TH, PH><<<xt::blocks_for(cols, threads), threads, 0, stream>>>(
-      static_cast<const TH*>(th), vars, tg, cols, n, m, th_cs, th_ks, t_cs, t_ms, o_cs, o_ms,
+int launch(const void* th, const xt::VarSet<PH>& vars, const float* tg, long long cols,
+           long long n, long long m, long long th_cs, long long th_ks, long long t_cs,
+           long long t_ms, long long o_cs, long long o_ms, int mask_edges, int check_flip,
+           cudaStream_t stream) {
+  if (n > (1 << 24) || m > (1 << 24)) return (int)cudaErrorInvalidValue;
+  const TH* theta = static_cast<const TH*>(th);
+  const size_t rs = (size_t)(n | 1);
+  int broadcast = 0;
+  for (int v = 0; v < NV; ++v) broadcast += vars.ks[v] == 0;
+  // column metadata, theta and the phis of `tile` columns
+  auto bytes_of = [&](int tile) {
+    return (size_t)tile *
+           (sizeof(ColMeta) + sizeof(float) * (rs * (1 + NV - broadcast) + broadcast));
+  };
+  int tile = kMaxTile;
+  while (tile > 1 && bytes_of(tile) > (size_t)kTileBudget) tile /= 2;
+  const size_t bytes = bytes_of(tile);
+  if (bytes > (size_t)kMaxShared) return (int)cudaErrorInvalidValue;
+  auto kernel = interp_linear_kernel<NV, TH, PH>;
+  if (bytes > 48 * 1024) {  // dynamic shared memory above the default needs the attribute
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<xt::blocks_for(cols, tile), kThreads, bytes, stream>>>(
+      theta, vars, tg, cols, (int)n, (int)m, tile, th_cs, th_ks, t_cs, t_ms, o_cs, o_ms,
       mask_edges, check_flip);
+  return 0;
 }
 
 template <typename TH, typename PH>
@@ -180,18 +459,17 @@ int dispatch(int nv, const void* th, const void* const* phs, const long long* ph
 #define XT_ARGS th, vars, tg, cols, n, m, th_cs, th_ks, t_cs, t_ms, o_cs, o_ms, mask_edges, \
                 check_flip, s
   switch (nv) {
-    case 1: launch<1, TH, PH>(XT_ARGS); break;
-    case 2: launch<2, TH, PH>(XT_ARGS); break;
-    case 3: launch<3, TH, PH>(XT_ARGS); break;
-    case 4: launch<4, TH, PH>(XT_ARGS); break;
-    case 5: launch<5, TH, PH>(XT_ARGS); break;
-    case 6: launch<6, TH, PH>(XT_ARGS); break;
-    case 7: launch<7, TH, PH>(XT_ARGS); break;
-    case 8: launch<8, TH, PH>(XT_ARGS); break;
+    case 1: return launch<1, TH, PH>(XT_ARGS);
+    case 2: return launch<2, TH, PH>(XT_ARGS);
+    case 3: return launch<3, TH, PH>(XT_ARGS);
+    case 4: return launch<4, TH, PH>(XT_ARGS);
+    case 5: return launch<5, TH, PH>(XT_ARGS);
+    case 6: return launch<6, TH, PH>(XT_ARGS);
+    case 7: return launch<7, TH, PH>(XT_ARGS);
+    case 8: return launch<8, TH, PH>(XT_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef XT_ARGS
-  return 0;
 }
 
 int run(int nv, const void* th, const void* const* phs, const long long* ph_cs,
