@@ -24,7 +24,9 @@ after; the script checks that every kernel of the path launched and that
 the results are right, and times each kernel beside its plain version.
 Kernels C and F are also held against their plain versions on columns built
 to break an interval search (``INTERP_CASES``), and F against V single
-calls of C bit for bit.
+calls of C bit for bit; kernels G and H likewise on columns built to break
+the walk over a column's cells (``CONSERVATIVE_CASES``, infinite bounds
+among them), and H against V single calls of G bit for bit.
 
     python3 chip_smoke.py [--seed N]
 
@@ -413,6 +415,212 @@ def check_interp_cases(check, gen, dev):
         f"bit at V = 2, 4, 8")
 
 
+CONSERVATIVE_CASES = (
+    "ascending-nan-ends", "descending-nan-ends", "non-sorted", "nan-bound-inside",
+    "degenerate-on-edge", "touching", "outside-edges", "infinite-bounds", "nan-data",
+    "infinite-data", "all-nan-columns", "n1", "n2", "cols15", "cols16", "cols17", "cols31",
+    "cols32", "cols33", "cols63", "cols64", "cols65", "lanes-major", "sliced-view",
+)
+
+
+def conservative_case(label, gen, dev):
+    """Columns built to break the walk of kernels G and H: a dict of raw
+    bounds theta (cols, n + 1), eight fields (cols, n) (field 0 with NaN at
+    some valid cells), the bin edges (m,), out_T, and ``finite`` (cols,),
+    the columns whose fractions are finite (no infinite bound).  The edges
+    are dyadic (-1 to 13.5 in steps of 1/2), so bounds sit on them exactly;
+    column counts 15-17, 31-33 and 63-65 straddle the tile sizes (16, 32, 64
+    columns) of ``csrc/conservative.cu``."""
+    nan, inf = float("nan"), float("inf")
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def mono(cols, n, desc_every=10):
+        th = torch.cumsum(rand(cols, n + 1) * (25.0 / max(n, 1)) + 0.01, -1)  # 0 .. ~13
+        if desc_every:
+            th[::desc_every] = th[::desc_every].flip(-1)
+        return th
+
+    def on_edge(x):  # the nearest edge at or below x
+        return torch.floor(x * 2) / 2
+
+    edges = torch.arange(-1.0, 14.0, 0.5, device=dev)
+    out_T, cols, n = False, 200, NZ
+    th = phis = None
+    if label == "ascending-nan-ends":
+        th = mono(cols, n, 0)
+        th[::2, :3] = nan
+        th[1::3, n - 3:] = nan
+        th[::5, :9] = nan  # a longer head
+        th[3::10, :9] = nan
+        th[3::10, 9] = on_edge(th[3::10, 9])  # a head cell degenerate on an edge
+    elif label == "descending-nan-ends":
+        th = mono(cols, n, 1)
+        th[::2, :3] = nan
+        th[1::3, n - 3:] = nan
+        th[::5, n - 8:] = nan  # a longer tail
+        th[3::10, n - 7:] = nan
+        th[3::10, n - 8] = on_edge(th[3::10, n - 8])  # a tail cell degenerate on an edge
+    elif label == "non-sorted":
+        th = mono(cols, n)
+        perm = torch.argsort(rand(cols // 2, n + 1), -1)
+        th[::2] = torch.gather(th[::2], 1, perm)  # shuffled
+        th[1::4, 20:24] = th[1::4, 20:24].flip(-1)  # an inversion
+        th[3::8, :2] = th[3::8, :2].flip(-1)  # the first two bounds swapped
+        th[7::8, -2:] = th[7::8, -2:].flip(-1)  # the last two
+    elif label == "nan-bound-inside":
+        th = mono(cols, n)
+        th[::2, 7] = nan
+        th[1::3, 20:22] = nan
+        th[5::7, n - 1] = nan
+    elif label == "degenerate-on-edge":
+        th = mono(cols, n, 0)
+        e = on_edge(th[:, 10:11])  # an edge at or below bound 10
+        th[:, :11] = torch.minimum(th[:, :11], e)
+        th[:, 11] = e[:, 0]  # cell 10 degenerate exactly on the edge
+        th[1::6, :5] = nan  # and head or tail cells degenerate on an edge
+        th[1::6, 5] = on_edge(th[1::6, 5])
+        th[2::6, 40:] = nan
+        th[2::6, 39] = torch.ceil(th[2::6, 39] * 2) / 2
+        th[::4] = th[::4].flip(-1)
+    elif label == "touching":
+        # 30 % of the bounds moved onto an edge, each column sorted again: cells
+        # that end on an edge, start on one, or sit on one
+        th = mono(cols, n, 0)
+        th = torch.where(rand(cols, n + 1) < 0.3, on_edge(th), th)
+        th = torch.sort(th, -1).values
+        th[::5] = th[::5].flip(-1)
+    elif label == "outside-edges":
+        th = mono(cols, n)
+        th[0::5] = th[0::5] * 0.2 - 5.0  # below the first edge
+        th[1::5] = th[1::5] * 0.2 + 14.0  # above the last edge
+        th[2::5] = th[2::5] * 1.5 - 3.0  # spanning all edges
+        top = th[3::5].nan_to_num(-inf).amax(-1, keepdim=True)
+        th[3::5] = th[3::5] - top - 1.0  # ending exactly on the first edge
+        bottom = th[4::5].nan_to_num(inf).amin(-1, keepdim=True)
+        th[4::5] = th[4::5] - bottom + 13.5  # starting exactly on the last edge
+    elif label == "infinite-bounds":
+        th = mono(cols, n, 0)
+        th[0:10, 0] = -inf  # tmin = -inf: every bin NaN
+        th[10:20, -1] = inf  # tmax = +inf: that cell deposits 0
+        th[20:30, -2:] = inf  # an [inf, inf] cell: every bin NaN
+        th[30:40, :2] = -inf  # a [-inf, -inf] cell
+        th[40:50, 0], th[40:50, -1] = -inf, inf
+        th[50:60, 0], th[50:60, 1] = nan, -inf  # degenerate at -inf
+        th[60:70, -2], th[60:70, -1] = inf, nan  # degenerate at +inf
+        th[70:80] = th[70:80].flip(-1)
+        th[70:75, 0], th[75:80, -1] = inf, -inf  # descending, infinite ends
+        th[80:90, 25] = inf  # an infinite bound inside
+    elif label == "nan-data":
+        th = mono(cols, n)
+        th[::3, :4] = nan
+    elif label == "infinite-data":
+        th = mono(cols, n)
+    elif label == "all-nan-columns":
+        th = mono(130, n)
+        th[::5] = nan
+        th[1::5, :] = nan
+        th[1::5, 17] = 4.0  # one valid bound: two cells degenerate on an edge
+        th[2::5, :30] = nan
+        th[2::5, 31:] = nan
+    elif label in ("n1", "n2"):
+        n = int(label[1:])
+        th = torch.sort(rand(cols, n + 1) * 16 - 2, -1).values
+        th[::4] = th[::4].flip(-1)
+        th[1::6, 0] = nan
+        th[2::6, -1] = nan
+        th[3::6, 0] = on_edge(th[3::6, 0])
+    elif label.startswith("cols"):
+        th = mono(int(label[4:]), n)
+    elif label == "lanes-major":
+        th = mono(cols, n).T.contiguous().T
+        phis = [(rand(n, cols) * 2 - 0.5).T for _ in range(8)]
+        out_T = True
+    elif label == "sliced-view":
+        th = mono(2 * cols, n + 10)[::2, 5:5 + n + 1]  # column stride 2 (n + 11), bounds 1
+        phis = [(rand(2 * cols, n + 10) * 2 - 0.5)[::2, 5:5 + n] for _ in range(8)]
+    else:
+        raise ValueError(f"unknown case {label}")
+    if phis is None:
+        phis = [rand(th.shape[0], n) * 2 - 0.5 for _ in range(8)]
+    phis[0][::7, n // 2] = nan
+    if label == "infinite-bounds":  # NaN data in infinite cells: G leaves them out, H not
+        phis[0][0:5, 0] = phis[0][20:25, -1] = phis[0][30:35, 0] = nan
+        phis[1][50:55, 0] = phis[1][60:65, -1] = nan
+    elif label == "nan-data":
+        for v, p in enumerate(phis):
+            p.masked_fill_(rand(*p.shape) < 0.1 * (v % 4), nan)
+        phis[3][::4] = nan  # all-NaN data in a column with valid bounds
+    elif label == "infinite-data":
+        phis[1][::3, 30] = inf
+        phis[2][1::3, 12] = -inf
+    return dict(theta=th, phis=phis, edges=edges, out_T=out_T,
+                finite=~torch.isinf(th).any(-1))
+
+
+def check_conservative_case(check, case, dtype):
+    """Kernels G (both accumulators) and H (V = 4) on one case of
+    :data:`CONSERVATIVE_CASES` against their plain versions (f32 within
+    n 2**-24 max column sum |phi|, twice that with reassociate; bf16 within
+    one bf16 ulp plus that; identical NaN and infinity footprints), and, in
+    f32, H at V = 2, 4, 8 bit for bit equal to V calls of G on the columns
+    whose fractions are finite and to its plain version on the rest."""
+    from xgcm_tpu_torch.ops.kernels import conservative as kg
+
+    th, edges = case["theta"].to(dtype), case["edges"].to(dtype)
+    phis = [p.to(dtype) for p in case["phis"]]
+    out_T, finite, n = case["out_T"], case["finite"], phis[0].shape[1]
+
+    def untransposed(outs):
+        return [o.T if out_T else o for o in outs]
+
+    def compare(name, label, got, want, p, scale=1.0):
+        finite_p = torch.where(torch.isinf(p), 0.0, p.float()).nan_to_num()
+        atol = scale * rebin_atol(float(finite_p.abs().sum(-1).max()), n)
+        if dtype == torch.float32:
+            check.compare(name, label, got, want, atol=atol)
+        else:
+            within_bf16(check, name, label, got, want, atol)
+
+    plain_g = kg._conservative_plain(th, phis[0], edges)
+    for reassociate in (False, True):
+        got = untransposed([kg.conservative_rebin(th, phis[0], edges, reassociate, out_T)])[0]
+        compare("conservative", f"{dtype}/reassociate={reassociate}", got, plain_g, phis[0],
+                2.0 if reassociate else 1.0)
+    for v, (o, pl) in enumerate(zip(
+            untransposed(kg.conservative_rebin_multi(th, phis[:NV], edges, out_T=out_T)),
+            kg._conservative_multi_plain(th, phis[:NV], edges))):
+        compare("conservative_multi", f"{dtype}/var {v}", o, pl, phis[v])
+    if dtype != torch.float32:
+        return
+    singles = [kg.conservative_rebin(th, p, edges) for p in phis]
+    for nv in (2, 4, 8):
+        multi = kg.conservative_rebin_multi(th, phis[:nv], edges)
+        plain = kg._conservative_multi_plain(th, phis[:nv], edges)
+        for v, (o, s, pl) in enumerate(zip(multi, singles, plain)):
+            if not torch.equal(o[finite].view(torch.int32), s[finite].view(torch.int32)):
+                raise AssertionError(f"conservative_multi [V={nv}/var {v}]: not bit for bit "
+                                     f"equal to kernel G")
+            if bool(finite.all()):
+                continue
+            compare("conservative_multi", f"V={nv}/var {v}/infinite bounds", o[~finite],
+                    pl[~finite], phis[v][~finite])
+
+
+def check_conservative_cases(check, gen, dev):
+    """Kernels G and H on every case of :data:`CONSERVATIVE_CASES`, in f32
+    and bf16 (:func:`check_conservative_case`)."""
+    for label in CONSERVATIVE_CASES:
+        case = conservative_case(label, gen, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            check_conservative_case(check, case, dtype)
+    torch.cuda.synchronize()
+    log(f"phase 3: conservative and conservative_multi match their plain versions on "
+        f"{len(CONSERVATIVE_CASES)} walk-breaking cases (f32, bf16, both accumulators); "
+        f"H == V calls of G bit for bit at V = 2, 4, 8 where the fractions are finite")
+
+
 def check_main_path(check, gen, dev, outputs, ug, vg, theta, targets):
     """The step's results: shapes, finiteness, the fused diagnostics equal
     to the separate Grid ops, the shifts equal to the roll formulation,
@@ -587,6 +795,19 @@ def check_density_kernels(check, gen, dev):
     log("phase 3: conservative (G), conservative_multi (H) and interp_linear_multi (F) "
         "kernels match their plain versions and single calls")
     return sig_b, sig_c, phis, edges, levels
+
+
+def walk_lengths(sig_b, edges):
+    """The cells the walk of kernels G and H visits per bin on sorted
+    columns: those that overlap the bin, plus the one that stops the walk;
+    and the share of lanes busy when a warp's 32 lanes take 32 consecutive
+    (column, bin) items and wait for the longest walk.  Returns (mean
+    visits per bin, lane share)."""
+    tmin = torch.fmin(sig_b[:, :-1], sig_b[:, 1:])[:, None, :]
+    tmax = torch.fmax(sig_b[:, :-1], sig_b[:, 1:])[:, None, :]
+    visits = ((tmin <= edges[1:, None]) & (tmax >= edges[:-1, None])).sum(-1) + 1
+    lanes = visits.reshape(-1)[:visits.numel() // 32 * 32].reshape(-1, 32).float()
+    return float(visits.float().mean()), float(lanes.mean() / lanes.amax(1).mean())
 
 
 def rows(*tensors, step=540):
@@ -922,10 +1143,12 @@ def main(argv=None) -> int:
         f"registers {min(regs)}-{max(regs)}, spill stores {spills} bytes")
     per_kernel = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", ptxas,
                             re.S)
-    interp_regs = [int(r) for fn, r in per_kernel if "interp_linear_kernel" in fn]
-    if interp_regs:
-        log(f"build: interp_linear.cu, {len(interp_regs)} instantiations (NV = 1..8 x 4 dtype "
-            f"pairs), registers {min(interp_regs)}-{max(interp_regs)}")
+    for source, kernel in (("interp_linear.cu", "interp_linear_kernel"),
+                           ("conservative.cu", "conservative_kernel")):
+        regs_of = [int(r) for fn, r in per_kernel if kernel in fn]
+        if regs_of:
+            log(f"build: {source}, {len(regs_of)} instantiations (NV = 1..8 x 4 dtype pairs), "
+                f"registers {min(regs_of)}-{max(regs_of)}")
 
     # ---- phase 3: each kernel against its plain version ---------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -942,6 +1165,7 @@ def main(argv=None) -> int:
     t_c = torch.linspace(-1.0, 27.0, N_TARGETS, device=dev)
     check_interp(check, gen, dev, th_c, ph_c, t_c)
     check_interp_cases(check, gen, dev)
+    check_conservative_cases(check, gen, dev)
     dens_sample = check_density_kernels(check, gen, dev)
     torch.cuda.synchronize()
 
@@ -1114,6 +1338,9 @@ def main(argv=None) -> int:
     bounds["conservative"] = conservative_bound(s_cols, 1)
     bounds["conservative_multi"] = conservative_bound(s_cols, NV)
     bounds["interp_linear_multi"] = linear_bound(s_cols, NV)
+    visits, busy = walk_lengths(s_b, s_edges)
+    log(f"walk of conservative/conservative_multi on {s_cols} density columns: {visits:.4f} "
+        f"cell visits per bin, lanes {busy:.4f} busy (32 consecutive items a warp)")
     for name, (kernel_fn, plain_fn) in pairs.items():
         times[name] = time_pair(kernel_fn, plain_fn, reps=5)
         log(f"time {name} {s_cols} cols x {NZ} levels, V = {1 if name == 'conservative' else NV}"

@@ -3,7 +3,9 @@ reference case table through ``Grid.transform``, ``interp_1d_conservative``
 on random columns (NaN bounds and data, degenerate cells, cells on a bin
 edge; increasing, decreasing, non-monotonic and 16-bit bins; dense and deep
 paths), kernels G's and H's plain versions against ``_conservative_rebin``
-and the Pallas kernels in interpret mode, the kernel routes driven through
+and the Pallas kernels in interpret mode (also on infinite bounds, whose
+NaN geometry G and H treat differently, and on cells that touch or sit on
+the bin edges), the kernel routes driven through
 the plain versions, and gradients.  NaN footprints must be identical; values
 agree to 1e-12 in float64 and 1e-6 in float32 (the JAX test's own 1e-5 for
 the Pallas kernels in interpret mode), and to one unit in the last place of
@@ -272,3 +274,77 @@ def test_gradient_matches_jax():
     (torch.where(torch.isnan(out), 0.0, out) * torch.as_tensor(w)).sum().backward()
     for a_t, a_j in zip(ins, g_j):
         assert_close(a_t.grad, a_j, rtol=1e-12, atol=1e-12)
+
+
+def _special_columns():
+    """Raw bounds (12, 5) with infinite bounds and cells that touch or sit
+    on the edges ``SPECIAL_EDGES``, and two fields: random data, and the
+    same with NaN in the cells whose geometry an infinite bound makes NaN."""
+    inf, nan = np.inf, np.nan
+    th = np.array([
+        [-inf, 1, 2, 3, 4],  # tmin = -inf: every bin NaN
+        [0.5, 1, 2, 3, inf],  # tmax = +inf: the cell deposits 0
+        [1, 2, 3, inf, inf],  # an [inf, inf] cell
+        [-inf, -inf, 1, 2, 3],  # a [-inf, -inf] cell
+        [nan, -inf, 1, 2, 3],  # a cell degenerate at -inf
+        [1, 2, 3, inf, nan],  # a cell degenerate at +inf
+        [4, 3, 2, 1, -inf],  # descending, -inf at the bottom
+        [1, 2, inf, 3, 4],  # +inf inside: both its cells deposit 0
+        [0.5, 1.5, 2.5, 3.5, 4.5],  # every bound on an edge: cells touch the bins
+        [1.5, 1.5, 2.5, 2.5, 3.0],  # degenerate cells on interior edges
+        [nan, 2.5, 3.0, 3.5, nan],  # degenerate end cells on edges
+        [3.5, 3.0, 2.5, 2.0, 1.5],  # descending, touching
+    ], dtype=np.float32)
+    rng = np.random.RandomState(21)
+    ph = rng.rand(12, 4).astype(np.float32) + 0.5
+    ph_nan = ph.copy()
+    ph_nan[[0, 3, 4], 0] = ph_nan[[3, 4], 1] = np.nan
+    ph_nan[[2, 5, 6], 3] = ph_nan[7, 1] = np.nan
+    return th, [ph, ph_nan]
+
+
+SPECIAL_EDGES = np.array([0.5, 1.5, 2.5, 3.5, 10.0], dtype=np.float32)
+
+
+def test_plain_g_matches_rebin_on_infinite_and_touching_columns():
+    """Kernel G's plain version lets the NaN of an infinite bound's
+    geometry through, as jnp.clip does: every bin of such a column is NaN,
+    unless the cell's datum is NaN (G leaves that cell out)."""
+    import jax.numpy as jnp
+
+    th, phis = _special_columns()
+    e_t = torch.as_tensor(SPECIAL_EDGES)
+    for ph in phis:
+        mine = kg._conservative_plain(torch.as_tensor(th), torch.as_tensor(ph), e_t)
+        ref, cnt = jax_tf._conservative_rebin(jnp.asarray(ph), jnp.asarray(th[:, :-1]),
+                                              jnp.asarray(th[:, 1:]), jnp.asarray(SPECIAL_EDGES))
+        assert_close(mine, np.asarray(jnp.where(cnt > 0, ref, jnp.nan)), rtol=1e-6, atol=1e-6)
+    plain = [kg._conservative_plain(torch.as_tensor(th), torch.as_tensor(p), e_t) for p in phis]
+    poisoned = [0, 2, 3, 4, 5, 6]
+    assert torch.isnan(plain[0][poisoned]).all()
+    assert not torch.isnan(plain[1][poisoned]).all(-1).any()
+    assert not torch.isnan(plain[0][[1, 7, 8, 9, 10, 11]]).all(-1).any()
+
+
+def test_plain_h_matches_pallas_on_infinite_and_touching_columns():
+    """Kernel H's plain version against the Pallas kernel in interpret
+    mode: H takes the geometry from the bounds alone, so a NaN datum in a
+    cell with an infinite bound still makes its column NaN (where G's bins
+    stay finite)."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from xgcm_tpu.ops.pallas_transform import conservative_fused_multi
+
+    th, phis = _special_columns()
+    th_t, e_t = torch.as_tensor(th), torch.as_tensor(SPECIAL_EDGES)
+    multi = kg._conservative_multi_plain(th_t, [torch.as_tensor(p) for p in phis], e_t)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = conservative_fused_multi(jnp.asarray(th), tuple(jnp.asarray(p) for p in phis),
+                                          jnp.asarray(SPECIAL_EDGES))
+    for o, pj in zip(multi, pallas):
+        assert_close(o, np.asarray(pj), rtol=1e-5, atol=1e-6)
+    poisoned = [0, 2, 3, 4, 5, 6]
+    assert torch.isnan(multi[1][poisoned]).all()
+    single = kg._conservative_plain(th_t, torch.as_tensor(phis[1]), e_t)
+    assert not torch.isnan(single[poisoned]).all(-1).any()

@@ -17,8 +17,9 @@ bit (16-bit types against the plain version computed in float32 and rounded
 once, as the kernels do); float32 kernels B and D within rtol = atol = 1e-6
 of the plain version, C and F too (nvcc contracts a*b+c into FMAs); G and
 H within n * 2**-24 * max column sum of |phi|, a bound on the rounding of
-n float32 additions in another order; bfloat16 within 1e-2 (one bf16 unit
-in the last place, since both round once from float32).
+n float32 additions in another order, and H equal to V calls of G bit for
+bit where the fractions are finite; bfloat16 within 1e-2 (one bf16 unit in
+the last place, since both round once from float32).
 """
 
 import os
@@ -477,6 +478,9 @@ def test_conservative_kernel_matches_plain(cuda, dtype, reassociate):
 @pytest.mark.parametrize("nv", [2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conservative_multi_kernel_matches_singles(cuda, dtype, nv):
+    """Kernel H runs kernel G's per-cell code on the same cells in the same
+    order: its outputs equal V single calls bit for bit (these columns have
+    no infinite bound), and the plain version within the tolerance."""
     th, ph = _cuda_cells(cuda, 1000, 20, seed=8)
     g = torch.Generator(device=cuda).manual_seed(9)
     phis = [ph] + [torch.rand(ph.shape, generator=g, device=cuda) for _ in range(nv - 1)]
@@ -487,11 +491,31 @@ def test_conservative_multi_kernel_matches_singles(cuda, dtype, nv):
     multi = kg.conservative_rebin_multi(th, phis, edges)
     assert build.launch_counts()["conservative_multi"] == 1
     plain = kg._conservative_multi_plain(th, phis, edges)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     for o, p, pl in zip(multi, phis, plain):
         tol = (dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16
                else dict(rtol=0, atol=_rebin_tol(p)))
-        assert_close(o.float(), kg.conservative_rebin(th, p, edges).float(), **tol)
+        assert torch.equal(o.view(bits), kg.conservative_rebin(th, p, edges).view(bits))
         assert_close(o.float(), pl.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label", chip_smoke.CONSERVATIVE_CASES)
+def test_conservative_kernels_on_walk_cases(cuda, label, dtype):
+    """Kernels G (both accumulators) and H (V = 4) against their plain
+    versions on the columns of ``chip_smoke.conservative_case``, built to
+    break the walk over a column's cells: NaN heads and tails in both
+    directions, unsorted columns, NaN bounds inside, degenerate cells on an
+    edge, cells touching a bin, columns outside or spanning the edges,
+    -inf, +inf and [inf, inf] bounds, NaN and infinite data, all-NaN
+    columns, n = 1 and 2, column counts around each tile size, lanes-major
+    inputs with ``out_T`` and sliced views; in float32 also H at V = 2, 4, 8
+    bit for bit against V calls of G where the fractions are finite
+    (``chip_smoke.check_conservative_case``)."""
+    case = chip_smoke.conservative_case(label, torch.Generator(device=cuda).manual_seed(12),
+                                        cuda)
+    chip_smoke.check_conservative_case(chip_smoke.Checker(), case, dtype)
 
 
 @pytest.mark.cuda

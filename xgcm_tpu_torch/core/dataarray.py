@@ -16,6 +16,7 @@ tensor, and host operands join that device.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -295,21 +296,44 @@ class GriddedArray:
         fill = torch.as_tensor(value, dtype=x.dtype, device=x.device)
         return self.with_data(torch.where(torch.isnan(x), fill, x))
 
-    def sum(self, dims: Union[str, Sequence[str], None] = None):
-        return self._reduce(torch.sum, dims)
+    def sum(self, dims: Union[str, Sequence[str], None] = None, **kwargs):
+        """Sum over ``dims`` (all when None) with the result dtype of
+        ``jnp.sum`` under x64: bool and the signed integers give int64, the
+        unsigned ones uint64, floats keep theirs.  Takes jnp's ``keepdims``
+        and ``dtype``."""
+        return self._reduce("sum", dims, **kwargs)
 
-    def mean(self, dims: Union[str, Sequence[str], None] = None):
-        return self._reduce(torch.mean, dims)
+    def mean(self, dims: Union[str, Sequence[str], None] = None, **kwargs):
+        """Mean over ``dims`` (all when None) with the result dtype of
+        ``jnp.mean`` under x64: float32 for bool and the integers below 64
+        bits, float64 for 64-bit integers; 16-bit floats are averaged in
+        float32 and rounded once.  Takes jnp's ``keepdims`` and ``dtype``."""
+        return self._reduce("mean", dims, **kwargs)
 
-    def _reduce(self, fn, dims):
+    def _reduce(self, how, dims, keepdims=False, dtype=None, **kwargs):
+        if kwargs:
+            raise TypeError(f"{how}() got unexpected keyword arguments {sorted(kwargs)}")
         x = as_tensor(self.data)
+        out_dtype = _torch_dtype(dtype) if dtype is not None else _reduced_dtype(how, x.dtype)
         if dims is None:
-            return GriddedArray(fn(x), (), name=self.name)
-        if isinstance(dims, str):
-            dims = [dims]
-        axes = tuple(self.get_axis_num(d) for d in dims)
-        out_dims = tuple(d for d in self.dims if d not in dims)
-        return GriddedArray(fn(x, dim=axes), out_dims, name=self.name)
+            axes, out_dims = tuple(range(x.ndim)), ()
+        else:
+            dims = [dims] if isinstance(dims, str) else list(dims)
+            axes = tuple(self.get_axis_num(d) for d in dims)
+            out_dims = tuple(d for d in self.dims if d not in dims)
+        if not (out_dtype.is_floating_point or out_dtype.is_complex):
+            # integers sum in int64 (uint64 results wrap as JAX's do); an
+            # integer mean divides with truncation, as lax.div does
+            out = torch.sum(x.to(torch.int64), dim=axes, keepdim=keepdims)
+            if how == "mean":
+                count = math.prod(x.shape[a] for a in axes)
+                out = torch.div(out, count, rounding_mode="trunc")
+        else:
+            # 16-bit floats are reduced in float32 and rounded once
+            work = torch.float32 if out_dtype in (torch.float16, torch.bfloat16) else out_dtype
+            fn = torch.sum if how == "sum" else torch.mean
+            out = fn(x.to(work), dim=axes, keepdim=keepdims)
+        return GriddedArray(out.to(out_dtype), out_dims, name=self.name)
 
     def astype(self, dtype) -> "GriddedArray":
         return self.with_data(as_tensor(self.data).to(dtype))
@@ -319,6 +343,23 @@ class GriddedArray:
             f"<GriddedArray {self.name or ''}{dict(zip(self.dims, self.shape))} "
             f"dtype={self.dtype}>"
         )
+
+
+def _reduced_dtype(how: str, dt: torch.dtype) -> torch.dtype:
+    """The dtype of ``jnp.sum``/``jnp.mean`` (``how``) of dt under x64."""
+    if dt.is_floating_point or dt.is_complex:
+        return dt
+    if how == "mean":
+        return torch.float64 if dt in (torch.int64, torch.uint64) else torch.float32
+    unsigned = dt in (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
+    return torch.uint64 if unsigned else torch.int64
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype, or the torch dtype of a NumPy dtype (or its name)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
 def _operand(x, device):

@@ -1,7 +1,9 @@
 // Shared helpers of the xgcm_tpu_torch kernels: dtype codes (kept equal to
 // DTYPE_CODES in ops/kernels/build.py), loads that widen 16-bit types to
 // float, stores that round once, the 2-point ops of the shift stencils
-// (kernels A and E), and the variable set of the multi-variable kernels.
+// (kernels A and E), the variable set of the multi-variable kernels, and
+// the staging of column tiles in shared memory by cp.async (kernels C/F and
+// G/H).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -90,6 +92,86 @@ VarSet<T> make_varset(int nv, const void* const* in, const long long* cs, const 
     s.out[v] = static_cast<T*>(out[v]);
   }
   return s;
+}
+
+// Staging of column tiles in shared memory (kernels C/F and G/H).
+
+// A 4-byte copy from device memory into shared memory that does not wait:
+// the block waits for all of its copies at once (wait_copies).
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// The same for 16 bytes (both addresses 16-byte aligned).
+__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A (tc, nk) tile, element (c, k) at src[c * cs + k * ks], into
+// dst[c * ds + k] as float.  Consecutive threads take consecutive elements
+// along the smaller stride; the (outer, inner) position steps by the block
+// size without a division per element.  float32 goes by copy_async, so every
+// element of every tile of the block is in flight at once; 16-bit values are
+// loaded eight at a time per thread, then widened and stored.
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, long long cs, long long ks,
+                                          int tc, int nk, float* dst, int ds) {
+  constexpr bool kAsync = sizeof(T) == sizeof(float);
+  constexpr int kBatch = kAsync ? 1 : 8;
+  if (tc <= 0 || nk <= 0) return;
+  if constexpr (kAsync) {
+    // a contiguous tile into an unpadded one: 16-byte copies
+    if (ks == 1 && cs == nk && ds == nk &&
+        ((reinterpret_cast<unsigned long long>(src) | reinterpret_cast<unsigned long long>(dst)) &
+         15) == 0) {
+      const float* from = reinterpret_cast<const float*>(src);
+      const int total = tc * nk, vec = total / 4;
+      for (int i = threadIdx.x; i < vec; i += blockDim.x) copy_async16(dst + 4 * i, from + 4 * i);
+      for (int i = 4 * vec + threadIdx.x; i < total; i += blockDim.x) copy_async(dst + i, from + i);
+      return;
+    }
+  }
+  const bool knots_fast = llabs(ks) <= llabs(cs);
+  const int inner = knots_fast ? nk : tc;
+  const long long s_in = knots_fast ? ks : cs, s_out = knots_fast ? cs : ks;
+  const int d_in = knots_fast ? 1 : ds, d_out = knots_fast ? ds : 1;
+  const int step_o = blockDim.x / inner, step_i = blockDim.x - step_o * inner;
+  int o = threadIdx.x / inner, i = threadIdx.x - o * inner;
+  for (int e = threadIdx.x; e < tc * nk; e += kBatch * blockDim.x) {
+    T val[kBatch];
+    int at[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      at[u] = -1;
+      if (e + u * (int)blockDim.x < tc * nk) {
+        const T* from = src + (o * s_out + i * s_in);
+        at[u] = o * d_out + i * d_in;
+        if constexpr (kAsync) {
+          copy_async(dst + at[u], reinterpret_cast<const float*>(from));
+        } else {
+          val[u] = *from;
+        }
+      }
+      o += step_o;
+      i += step_i;
+      if (i >= inner) {
+        i -= inner;
+        ++o;
+      }
+    }
+    if constexpr (!kAsync) {
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (at[u] >= 0) dst[at[u]] = xt::to_compute(val[u]);
+      }
+    }
+  }
 }
 
 inline unsigned int blocks_for(long long work, int threads) {

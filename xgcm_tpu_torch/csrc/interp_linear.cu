@@ -118,83 +118,6 @@ struct alignas(16) ColMeta {
   float th_min, th_max;
 };
 
-// A 4-byte copy from device memory into shared memory that does not wait:
-// the block waits for all of its copies at once (wait_copies).
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-// The same for 16 bytes (both addresses 16-byte aligned).
-__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// A (tc, nk) tile, element (c, k) at src[c * cs + k * ks], into
-// dst[c * ds + k] as float.  Consecutive threads take consecutive elements
-// along the smaller stride; the (outer, inner) position steps by the block
-// size without a division per element.  float32 goes by copy_async, so every
-// element of every tile of the block is in flight at once; 16-bit values are
-// loaded eight at a time per thread, then widened and stored.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, long long cs, long long ks,
-                                          int tc, int nk, float* dst, int ds) {
-  constexpr bool kAsync = sizeof(T) == sizeof(float);
-  constexpr int kBatch = kAsync ? 1 : 8;
-  if constexpr (kAsync) {
-    // a contiguous tile into an unpadded one: 16-byte copies
-    if (ks == 1 && cs == nk && ds == nk &&
-        ((reinterpret_cast<unsigned long long>(src) | reinterpret_cast<unsigned long long>(dst)) &
-         15) == 0) {
-      const float* from = reinterpret_cast<const float*>(src);
-      const int total = tc * nk, vec = total / 4;
-      for (int i = threadIdx.x; i < vec; i += blockDim.x) copy_async16(dst + 4 * i, from + 4 * i);
-      for (int i = 4 * vec + threadIdx.x; i < total; i += blockDim.x) copy_async(dst + i, from + i);
-      return;
-    }
-  }
-  const bool knots_fast = llabs(ks) <= llabs(cs);
-  const int inner = knots_fast ? nk : tc;
-  const long long s_in = knots_fast ? ks : cs, s_out = knots_fast ? cs : ks;
-  const int d_in = knots_fast ? 1 : ds, d_out = knots_fast ? ds : 1;
-  const int step_o = blockDim.x / inner, step_i = blockDim.x - step_o * inner;
-  int o = threadIdx.x / inner, i = threadIdx.x - o * inner;
-  for (int e = threadIdx.x; e < tc * nk; e += kBatch * blockDim.x) {
-    T val[kBatch];
-    int at[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      at[u] = -1;
-      if (e + u * (int)blockDim.x < tc * nk) {
-        const T* from = src + (o * s_out + i * s_in);
-        at[u] = o * d_out + i * d_in;
-        if constexpr (kAsync) {
-          copy_async(dst + at[u], reinterpret_cast<const float*>(from));
-        } else {
-          val[u] = *from;
-        }
-      }
-      o += step_o;
-      i += step_i;
-      if (i >= inner) {
-        i -= inner;
-        ++o;
-      }
-    }
-    if constexpr (!kAsync) {
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        if (at[u] >= 0) dst[at[u]] = xt::to_compute(val[u]);
-      }
-    }
-  }
-}
-
 // The full scan of a column that is not sorted: every interval with
 // theta_eff[k] <= te < theta_eff[k+1] adds its terms, in knot order, as the
 // plain version's membership sums do.
@@ -361,18 +284,18 @@ __global__ void __launch_bounds__(kThreads, 8) interp_linear_kernel(
   float* ph_base = th_s + tile * rs;
 
   // 1. stage theta and the phis
-  load_tile(th + c0 * th_cs, th_cs, th_ks, tc, n, th_s, rs);
+  xt::load_tile(th + c0 * th_cs, th_cs, th_ks, tc, n, th_s, rs);
   {
     float* p = ph_base;
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       const bool bc = vars.ks[v] == 0;
-      load_tile(vars.in[v] + c0 * vars.cs[v], vars.cs[v], vars.ks[v], tc, bc ? 1 : n, p,
+      xt::load_tile(vars.in[v] + c0 * vars.cs[v], vars.cs[v], vars.ks[v], tc, bc ? 1 : n, p,
                 bc ? 1 : rs);
       p += bc ? tile : tile * rs;
     }
   }
-  wait_copies();
+  xt::wait_copies();
   __syncthreads();
 
   // 2. the prepass, one thread per column
