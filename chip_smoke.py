@@ -21,10 +21,15 @@ face, 50 levels, float32):
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; the script checks that every kernel of the path launched and that
-the results are right, and times each kernel beside its plain version.
-Kernels C and F are also held against their plain versions on columns built
-to break an interval search (``INTERP_CASES``), and F against V single
-calls of C bit for bit; kernels G and H likewise on columns built to break
+the results are right, and times each kernel beside its plain version
+(kernel A also beside ``torch.profiler``'s kernel time, on a 3-D face of
+50 levels, and at several strip lengths).  Kernel A is also held bit for
+bit against its plain version on shapes that break its index arithmetic
+(``SHIFT_SHAPES``: odd widths, n = 1 and 2 on each axis, a 4-D middle
+axis, each aligned and misaligned, in every dtype) and on two bf16 views
+of more than 2^31 elements (its 64-bit route).  Kernels C and F are also
+held against their plain versions on columns built to break an interval
+search (``INTERP_CASES``), and F against V single calls of C bit for bit; kernels G and H likewise on columns built to break
 the walk over a column's cells (``CONSERVATIVE_CASES``, infinite bounds
 among them), and H against V single calls of G bit for bit.
 
@@ -184,9 +189,104 @@ def columns(gen, dev, cols, n):
     return th.contiguous(), ph.contiguous()
 
 
+SHIFT_OPS = ("diff", "interp", "min", "max")
+SHIFT_BCS = ("periodic", "fill", "extend", "extrapolate")
+SHIFT_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.float16)
+# (label, shape, axes): shapes that break kernel A's index arithmetic (odd
+# and vector-width widths, n = 1 and 2 on each axis, a 4-D middle axis);
+# each also runs as a view 4 bytes off 16-byte alignment, "misaligned"
+SHIFT_SHAPES = (
+    *((f"width{w}", (300, w), (0, 1)) for w in (1, 2, 3, 5, 4319, 4321)),
+    *((f"n{n}/axis{a}", tuple(n if i == a else (300, 256, 200)[i] for i in range(3)), (a,))
+      for n in (1, 2) for a in range(3)),
+    ("4d-middle", (6, 50, 70, 64), (1, 2)),
+    ("face-rows", (1000, NX), (0, 1)),
+)
+# a row (1-D) and a plane (axis 0 of (3, 2^30 + 2048), whose row 1 crosses
+# the offset 2^31 at column 2^30 - 2048) of more than 2^31 bf16 elements:
+# kernel A's 64-bit route, checked around the offset 2^31
+OFFSET_64 = 2 ** 31
+SHIFT_64BIT = ((OFFSET_64 + 4096,), (3, OFFSET_64 // 2 + 2048))
+
+
+def shift_reference(k, x, axis, op, direction, bc, fill):
+    """What kernel A is held to bit for bit: the plain version, run in
+    float32 and rounded once for 16-bit types, as the kernel computes."""
+    if x.dtype in (torch.float32, torch.float64):
+        return k.shift_plain(x, axis, op, direction, bc, fill)
+    return k.shift_plain(x.float(), axis, op, direction, bc, fill).to(x.dtype)
+
+
+def shift_every_way(check, k, label, x, axes, fill=1.5):
+    """Kernel A against its reference on x, every op x direction x boundary
+    along each of ``axes``, bitwise."""
+    for axis, op, direction, bc in itertools.product(axes, SHIFT_OPS, ("left", "right"),
+                                                     SHIFT_BCS):
+        check.compare("shift", f"{label}/{x.dtype}/{op}/{direction}/{bc}/axis{axis}",
+                      k.shift(x, axis, op, direction, bc, fill),
+                      shift_reference(k, x, axis, op, direction, bc, fill), exact=True)
+
+
+def sprinkled(gen, dev, shape, dtype, misaligned=False):
+    """N(0, 9) values with NaN, inf and -0.0 at a few places; ``misaligned``
+    puts the data one element off 16-byte alignment (4 bytes; 8 for f64, 4
+    for 16-bit types, which are 2 elements)."""
+    n = int(np.prod(shape))
+    off = max(1, 4 // torch.tensor([], dtype=dtype).element_size())
+    x = torch.randn((n + off,), generator=gen, device=dev).mul_(3).to(dtype)
+    x = x[off:] if misaligned else x[:n]
+    x[[3, 11]] = float("nan")
+    x[7] = float("inf")
+    x[5] = -0.0
+    return x.view(shape)
+
+
+def check_shift_64bit(check, k, gen, dev):
+    """Kernel A's 64-bit route on bf16 views of more than 2^31 elements,
+    compared on the edge rows and around the 2^31 offset."""
+    half = 512
+    for shape in SHIFT_64BIT:
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+        axis = 0
+        for op, direction, bc in itertools.product(SHIFT_OPS, ("left", "right"), SHIFT_BCS):
+            got = k.shift(x, axis, op, direction, bc, 1.5)
+            label = f"64bit{shape}/{op}/{direction}/{bc}"
+            if len(shape) == 1:
+                # the edge elements: the plain version on the first and last
+                # `half` elements side by side wraps as the whole row does;
+                # the junction element between them is left out
+                ends = torch.cat([x[:half], x[-half:]])
+                want = shift_reference(k, ends, 0, op, direction, bc, 1.5)
+                keep = torch.ones(2 * half, dtype=torch.bool, device=dev)
+                keep[half if direction == "left" else half - 1] = False
+                check.compare("shift", f"{label}/ends", torch.cat([got[:half], got[-half:]])[keep],
+                              want[keep], exact=True)
+                # around the 2^31 offset, the window's inner elements
+                m = OFFSET_64
+                want = shift_reference(k, x[m - half - 1:m + half + 1], 0, op, direction, bc, 1.5)
+                check.compare("shift", f"{label}/2^31", got[m - half:m + half], want[1:-1],
+                              exact=True)
+            else:
+                # along axis 0 each column stands alone: the first and last
+                # columns, and those of row 1 around the 2^31 offset
+                inner = shape[1]
+                c = OFFSET_64 - inner
+                for name, cols in (("ends", torch.cat([torch.arange(half), torch.arange(
+                        inner - half, inner)])), ("2^31", torch.arange(c - half, c + half))):
+                    cols = cols.to(dev)
+                    check.compare("shift", f"{label}/{name}", got[:, cols],
+                                  shift_reference(k, x[:, cols], 0, op, direction, bc, 1.5),
+                                  exact=True)
+            del got
+        del x
+        torch.cuda.empty_cache()
+
+
 def check_shift(check, gen, dev):
     """Kernel A: every op x direction x boundary on one face, both axes,
-    bitwise; axis 0 of a 3-D field; a bf16 case within one ulp."""
+    bitwise; axis 0 of a 3-D field; a bf16 case within one ulp; then the
+    shapes of ``SHIFT_SHAPES``, aligned and misaligned, in every dtype, and
+    the 64-bit route."""
     from xgcm_tpu_torch.ops.kernels import shift as k
 
     x = torch.randn((NY, NX), generator=gen, device=dev)
@@ -211,7 +311,158 @@ def check_shift(check, gen, dev):
     check.max_err["shift"] = max(check.max_err["shift"], float(err.max()))
     if not bool((err <= bf16_ulp(want)).all()):
         raise AssertionError("shift [bf16]: more than one bf16 ulp from the plain version")
-    log("phase 3: shift kernel matches its plain version (bitwise f32, 1 ulp bf16)")
+    cases = 0
+    for (label, shape, axes), dtype, misaligned in itertools.product(
+            SHIFT_SHAPES, SHIFT_DTYPES, (False, True)):
+        xs = sprinkled(gen, dev, shape, dtype, misaligned)
+        if misaligned != (xs.data_ptr() % 16 != 0):
+            raise AssertionError(f"shift [{label}]: the view is not as misaligned as asked")
+        shift_every_way(check, k, f"{label}{'/misaligned' if misaligned else ''}", xs, axes)
+        cases += 1
+    check_shift_64bit(check, k, gen, dev)
+    log(f"phase 3: shift kernel matches its plain version (bitwise f32/f64 and 16-bit against "
+        f"float32 rounded once, 1 ulp bf16 against bf16) on the face, {cases} shape/dtype/"
+        f"alignment cases x 32 op/direction/boundary, and the 64-bit route on "
+        f"{len(SHIFT_64BIT)} bf16 views of more than 2^31 elements")
+
+
+def profiled_ms(fn, names, reps=20):
+    """(device ms per call of the kernels whose names hold one of ``names``,
+    their launches per call) from ``torch.profiler`` kernel events over
+    ``reps`` calls after a warm-up; (None, 0) when the trace holds no device
+    time for them."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if any(n in e.key for n in names)]
+    except Exception as exc:  # the profiler is a measurement aid, not a check
+        log(f"torch.profiler failed: {exc!r}")
+        return None, 0
+    total_us = sum(e.self_device_time_total for e in events)
+    count = sum(e.count for e in events)
+    return (total_us / 1e3 / reps if total_us > 0 else None), count / reps
+
+
+def device_breakdown(fn, reps=3, top=6):
+    """(wall ms per call by CUDA events, kernel ms per call, [(kernel, ms per
+    call)] of the ``top`` kernels) from one ``torch.profiler`` window of
+    ``reps`` calls; the kernels run on one stream, so wall minus kernel time
+    is the device's idle time.  None when the profiler gives no device
+    time."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+        events = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    except Exception as exc:
+        log(f"torch.profiler failed: {exc!r}")
+        return None
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    if busy <= 0:
+        return None
+    names = [(e.key.replace("(anonymous namespace)::", "").split("(")[0][-60:],
+              e.self_device_time_total / 1e3 / reps)
+             for e in events[:top]]
+    return start.elapsed_time(end) / reps, busy, names
+
+
+SHIFT_KERNELS = ("shift_rows", "shift_planes")
+
+
+def time_shift(check, card, ug):
+    """Kernel A's timing: the four 4320^2 f32 configurations beside the
+    plain version, the one-call PyTorch equivalent where there is one and
+    the profiler's kernel time; strip lengths of the inner > 1 route against
+    one row a thread.  Returns ((ms, plain ms) of the slowest
+    configuration, its library ms or None)."""
+    from xgcm_tpu_torch.ops.kernels.shift import shift, shift_plain
+
+    # the one PyTorch call for a periodic diff: torch.diff with the wrapped
+    # line prepended (left) or appended (right), equal bit for bit
+    def torch_diff(x, axis, direction):
+        edge = x.narrow(axis, x.shape[axis] - 1 if direction == "left" else 0, 1)
+        if direction == "left":
+            return lambda: torch.diff(x, dim=axis, prepend=edge)
+        return lambda: torch.diff(x, dim=axis, append=edge)
+
+    configs = []
+    for op, direction, axis in (("diff", "left", 1), ("diff", "left", 0),
+                                ("diff", "right", 1), ("interp", "right", 0)):
+        k_ms, p_ms = time_pair(lambda: shift(ug, axis, op, direction, "periodic"),
+                               lambda: shift_plain(ug, axis, op, direction, "periodic"), reps=50)
+        lib_ms = None
+        if op == "diff":
+            call = torch_diff(ug, axis, direction)
+            check.compare("shift", f"torch.diff/{direction}/axis{axis}", call(),
+                          shift(ug, axis, op, direction, "periodic"), exact=True)
+            lib_ms, _ = time_pair(call, reps=50)
+        prof_ms, per_call = profiled_ms(lambda: shift(ug, axis, op, direction, "periodic"),
+                                        SHIFT_KERNELS)
+        prof = "not measured" if prof_ms is None else f"{prof_ms:.4f} ms ({per_call:g} a call)"
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"time shift {op}/{direction}/axis{axis} {NY}x{NX} f32: kernel {k_ms:.4f} ms "
+            f"(profiler kernel time {prof}), plain {p_ms:.4f} ms, torch.diff {lib} [{card}]")
+        configs.append((k_ms, p_ms, lib_ms))
+    slowest = max(configs, key=lambda c: c[0])
+    log(f"time shift: slowest of the four {NY}x{NX} configurations {slowest[0]:.4f} ms; bound "
+        f"{bound(2 * NY * NX * 4, NY * NX)[0]:.4f} ms [{card}]")
+
+    time_strips(check, card, ug, 0, (1, 2, 4, 8, 16, 32, 64, 0), f"{NY}x{NX}/axis0")
+    return slowest[:2], slowest[2]
+
+
+def time_strips(check, card, x, axis, rows_list, label):
+    """Kernel A's planes route at forced strip lengths (0: its own), each
+    equal to the default launch bit for bit."""
+    from xgcm_tpu_torch.ops.kernels.shift import launch_shift, shift
+
+    want = shift(x, axis, "diff", "left", "periodic")
+    cells = []
+    for rows in rows_list:
+        check.compare("shift", f"{label}/rows{rows}", launch_shift(
+            x, axis, "diff", "left", "periodic", rows=rows), want, exact=True)
+        ms, _ = time_pair(lambda: launch_shift(x, axis, "diff", "left", "periodic", rows=rows),
+                          reps=50 if x.dim() == 2 else 5)
+        cells.append(f"{rows or 'auto'}: {ms:.4f}")
+    log(f"time shift strips {label} diff/left (rows a thread: ms): {', '.join(cells)} [{card}]")
+
+
+def time_shift_3d(check, card, gen, dev):
+    """Kernel A on one face of 50 levels, (50, 4320, 4320) f32, along each
+    axis beside the plain version and the bound, and the planes route's
+    strip lengths there."""
+    from xgcm_tpu_torch.ops.kernels.shift import shift, shift_plain
+
+    # a 3-D tracer gradient on one face, each axis against the plain version
+    x3 = torch.randn((NZ, NY, NX), generator=gen, device=dev)
+    b3 = bound(2 * x3.numel() * 4, x3.numel())
+    for axis in range(3):
+        for op, direction, bc in (("diff", "left", "periodic"), ("interp", "right", "extrapolate")):
+            got = shift(x3, axis, op, direction, bc)
+            want = shift_plain(x3, axis, op, direction, bc)
+            for z in range(0, NZ, 10):  # in slices, to bound the comparison's memory
+                check.compare("shift", f"3d-face/{op}/{direction}/{bc}/axis{axis}",
+                              got[z:z + 10], want[z:z + 10], exact=True)
+            del got, want
+        k_ms, p_ms = time_pair(lambda: shift(x3, axis, "diff", "left", "periodic"),
+                               lambda: shift_plain(x3, axis, "diff", "left", "periodic"), reps=5)
+        log(f"time shift diff/left/axis{axis} {NZ}x{NY}x{NX} f32: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {b3[0]:.4f} ms ({b3[1]}) [{card}]")
+    time_strips(check, card, x3, 0, (1, 2, 4, 8, 16, 0), f"{NZ}x{NY}x{NX}/axis0")
+    time_strips(check, card, x3, 1, (1, 2, 4, 8, 16, 64, 0), f"{NZ}x{NY}x{NX}/axis1")
+    del x3
+    torch.cuda.empty_cache()
 
 
 def check_diagnostics(check, u, v, ix, iy):
@@ -1143,12 +1394,23 @@ def main(argv=None) -> int:
         f"registers {min(regs)}-{max(regs)}, spill stores {spills} bytes")
     per_kernel = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", ptxas,
                             re.S)
-    for source, kernel in (("interp_linear.cu", "interp_linear_kernel"),
-                           ("conservative.cu", "conservative_kernel")):
+    for source, kernel, what in (
+            ("interp_linear.cu", "interp_linear_kernel", "NV = 1..8 x 4 dtype pairs"),
+            ("conservative.cu", "conservative_kernel", "NV = 1..8 x 4 dtype pairs"),
+            ("shift.cu", "shift_rows", "4 dtypes x vector/scalar x 32/64-bit offsets"),
+            ("shift.cu", "shift_planes", "4 dtypes x vector/scalar x batches of 1-8 rows "
+                                         "(32-bit offsets) or one (64-bit)")):
         regs_of = [int(r) for fn, r in per_kernel if kernel in fn]
         if regs_of:
-            log(f"build: {source}, {len(regs_of)} instantiations (NV = 1..8 x 4 dtype pairs), "
+            log(f"build: {source} {kernel}, {len(regs_of)} instantiations ({what}), "
                 f"registers {min(regs_of)}-{max(regs_of)}")
+    # spill stores of each entry function, from its block of the report
+    spilled = {}
+    for block in ptxas.split("Compiling entry function '")[1:]:
+        found = re.search(r"(\d+) bytes spill stores", block)
+        if found and int(found.group(1)):
+            spilled[block.split("'", 1)[0]] = int(found.group(1))
+    log(f"build: entry functions with spill stores (bytes): {spilled}")
 
     # ---- phase 3: each kernel against its plain version ---------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1203,17 +1465,7 @@ def main(argv=None) -> int:
     # ---- phase 5: timing ----------------------------------------------
     times, bounds, library = {}, {}, {}
     n_face = NY * NX
-    for op, direction, axis in (("diff", "left", 1), ("diff", "left", 0),
-                                ("diff", "right", 1), ("interp", "right", 0)):
-        k_ms, p_ms = time_pair(lambda: shift(ug, axis, op, direction, "periodic"),
-                               lambda: shift_plain(ug, axis, op, direction, "periodic"))
-        log(f"time shift {op}/{direction}/axis{axis} {NY}x{NX} f32: kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms [{card}]")
-        times.setdefault("shift", (k_ms, p_ms))
-    # the one PyTorch call that computes the periodic left diff along axis 1
-    check.compare("shift", "torch.diff", torch.diff(ug, dim=1, prepend=ug[:, -1:]),
-                  shift(ug, 1, "diff", "left", "periodic"), exact=True)
-    library["shift"], _ = time_pair(lambda: torch.diff(ug, dim=1, prepend=ug[:, -1:]))
+    times["shift"], library["shift"] = time_shift(check, card, ug)
     bounds["shift"] = bound(2 * n_face * 4, n_face)
     times["cgrid_diagnostics"] = time_pair(lambda: cgrid_diagnostics(u, v, ix, iy),
                                            lambda: cgrid_diagnostics_plain(u, v, ix, iy))
@@ -1248,6 +1500,14 @@ def main(argv=None) -> int:
     diag_ms, _ = time_pair(lambda: diagnostics_op(grid, gu, gv))
     log(f"time step {NY}x{NX}x{NZ} -> {N_TARGETS} f32: {step_ms:.4f} ms; "
         f"cgrid_diagnostics op: {diag_ms:.4f} ms [{card}]")
+    brk = device_breakdown(lambda: step(ug, vg, theta, targets, grid=grid))
+    if brk is None:
+        log("profile step: no device time from torch.profiler (not measured)")
+    else:
+        wall, busy, top = brk
+        log(f"profile step: {wall:.4f} ms a step (CUDA events inside the profiler), kernels "
+            f"{busy:.4f} ms, device idle share {max(0.0, 1 - busy / wall):.4f}; top kernels "
+            + "; ".join(f"{name} {ms:.4f} ms" for name, ms in top) + f" [{card}]")
 
     # the vorticity benchmark configuration at one face: kernel D, driven
     # as the JAX package's bench drives fused_vorticity, beside the Grid
@@ -1294,8 +1554,10 @@ def main(argv=None) -> int:
         times.setdefault("face_shift", (k_ms, p_ms))
     # x in, out, and the halo; one operation per point
     bounds["face_shift"] = bound((2 * xf.numel() + hf.numel()) * 4, xf.numel())
-    del theta, th_main, ke_cols, zeta, div, ke_on_theta, d_zeta, d_div, d_ke, gu, gv, zeta_d
     del xf, hf
+    # kernel A at 3-D, after the other kernels' timings, as they ran before
+    time_shift_3d(check, card, gen, dev)
+    del theta, th_main, ke_cols, zeta, div, ke_on_theta, d_zeta, d_div, d_ke, gu, gv, zeta_d
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

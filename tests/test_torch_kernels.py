@@ -22,6 +22,7 @@ bit where the fractions are finite; bfloat16 within 1e-2 (one bf16 unit in
 the last place, since both round once from float32).
 """
 
+import itertools
 import os
 import pathlib
 import subprocess
@@ -49,7 +50,7 @@ from xgcm_tpu_torch.ops.kernels.interp_linear import (
     interp_linear_multi,
 )
 from xgcm_tpu_torch.ops.kernels.face_shift import face_shift, face_shift_plain
-from xgcm_tpu_torch.ops.kernels.shift import shift, shift_plain
+from xgcm_tpu_torch.ops.kernels.shift import launch_shift, shift, shift_plain
 from xgcm_tpu_torch.ops.kernels.vorticity import vorticity, vorticity_plain
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -278,19 +279,46 @@ def cuda(monkeypatch):
 @pytest.mark.parametrize("direction", ["left", "right"])
 @pytest.mark.parametrize("op", ["diff", "interp", "min", "max"])
 def test_shift_kernel_matches_plain(cuda, op, direction, bc, dtype):
+    """Every axis of a 3-D field, odd and vector-width widths along the last
+    axis, n = 1 and 2 on each axis, a 4-D middle axis, and each of these as
+    a view one element off 16-byte alignment (the kernel's scalar route)."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn((5, 37, 130), generator=g, device=cuda).to(dtype)
-    x.view(-1)[[3, 77]] = float("nan")
-    for axis in range(3):
-        k = shift(x, axis, op, direction, bc, 1.5)
-        if dtype in (torch.float32, torch.float64):
-            p = shift_plain(x, axis, op, direction, bc, 1.5)
-        else:
-            # 16-bit types compute in float32 and round once at the store
-            p = shift_plain(x.float(), axis, op, direction, bc, 1.5).to(dtype)
-        assert k.dtype == dtype
-        assert torch.equal(torch.isnan(k), torch.isnan(p))
-        assert torch.equal(k.nan_to_num(), p.nan_to_num())
+    shapes = [(5, 37, 130), *((6, w) for w in (1, 2, 3, 5, 8, 127, 129)),
+              *(tuple(n if i == a else (6, 7, 16)[i] for i in range(3))
+                for n in (1, 2) for a in range(3)),
+              (3, 4, 5, 8)]
+    for shape, misaligned in itertools.product(shapes, (False, True)):
+        numel = int(np.prod(shape))
+        flat = torch.randn((numel + 8,), generator=g, device=cuda).to(dtype)
+        flat[[3, 11]] = float("nan")
+        off = max(1, 4 // flat.element_size()) if misaligned else 0
+        x = flat[off:off + numel].view(shape)
+        assert (x.data_ptr() % 16 != 0) == misaligned
+        for axis in range(len(shape)):
+            k = shift(x, axis, op, direction, bc, 1.5)
+            if dtype in (torch.float32, torch.float64):
+                p = shift_plain(x, axis, op, direction, bc, 1.5)
+            else:
+                # 16-bit types compute in float32 and round once at the store
+                p = shift_plain(x.float(), axis, op, direction, bc, 1.5).to(dtype)
+            assert k.dtype == dtype
+            assert torch.equal(torch.isnan(k), torch.isnan(p)), (shape, misaligned, axis)
+            assert torch.equal(k.nan_to_num(), p.nan_to_num()), (shape, misaligned, axis)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["left", "right"])
+@pytest.mark.parametrize("bc", ["periodic", "fill", "extend", "extrapolate"])
+def test_shift_kernel_strips_agree(cuda, direction, bc):
+    """The inner > 1 route gives the same result for any strip length,
+    including strips that do not divide n and strips longer than n."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for shape, axis in (((37, 64), 0), ((3, 37, 24), 1), ((4, 37, 5), 1)):
+        x = torch.randn(shape, generator=g, device=cuda)
+        want = shift_plain(x, axis, "diff", direction, bc, 1.5)
+        for rows in (1, 2, 3, 5, 36, 37, 100):
+            got = launch_shift(x, axis, "diff", direction, bc, 1.5, rows=rows)
+            assert torch.equal(got, want), (shape, axis, rows)
 
 
 @pytest.mark.cuda

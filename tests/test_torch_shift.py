@@ -1,8 +1,9 @@
 """The shift stencils of the port against xgcm_tpu, bit for bit:
 ``fused_shift_op`` (kernel A's plain version on the CPU) and Grid
 ``interp``/``diff``/``min``/``max`` over every op, direction and boundary
-condition, along each axis of a 3-D array, in float64 and float32; integer
-inputs and inner/outer position pairs through the generic engine."""
+condition, along each axis of a 3-D array (also with 1, 2, 3 or 5 points
+on that axis), in float64 and float32; integer inputs and inner/outer
+position pairs through the generic engine."""
 
 import warnings
 
@@ -45,6 +46,25 @@ def test_fused_shift_op_bitwise(op, direction, bc, dtype):
         j = jax_shift(jnp.asarray(x), axis, op, direction, bc, 1.5)
         t = torch_shift(torch.as_tensor(x), axis, op, direction, bc, 1.5)
         assert_bitwise(t, j)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("direction", ("left", "right"))
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("n", (1, 2, 3, 5))
+def test_fused_shift_op_bitwise_small_odd_shapes(n, op, direction, dtype):
+    """n = 1, 2, 3 and 5 along each axis, every boundary: the widths at which
+    kernel A's index arithmetic breaks, pinned on the plain version that the
+    card holds the kernel against."""
+    import jax.numpy as jnp
+
+    for axis in range(3):
+        shape = tuple(n if i == axis else (4, 3, 5)[i] for i in range(3))
+        x = _field(shape, dtype, seed=6)
+        for bc in BCS:
+            j = jax_shift(jnp.asarray(x), axis, op, direction, bc, 1.5)
+            t = torch_shift(torch.as_tensor(x), axis, op, direction, bc, 1.5)
+            assert_bitwise(t, j)
 
 
 def _grids(dtype):

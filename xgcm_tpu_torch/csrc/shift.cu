@@ -11,73 +11,357 @@
 // value) or extrapolate (2 * edge - next inward).
 //
 // Bound on the card: memory.  One read of x and one write of out per
-// element (the neighbour read hits the same or the adjacent cache line), no
-// arithmetic to speak of.  Design: one thread per output element in a
-// grid-stride loop; neighbouring threads take neighbouring elements, so
-// loads and stores coalesce for every axis (the shift moves by `inner`
-// elements, never across threads of a warp when inner == 1 except by one
-// element).  16-bit types load into float and round once at the store.
+// element, no arithmetic to speak of.  Design: no division per element, and
+// 16-byte accesses wherever the layout allows them.
+//
+// * inner == 1 (shift_rows): a row of n contiguous elements is cut into
+//   vectors of VW = 16 / sizeof(T) elements, one per thread; the row comes
+//   from the block's y coordinate, the vector from its x coordinate.  The one
+//   element that crosses a vector comes from the neighbouring lane
+//   (__shfl_up_sync / __shfl_down_sync, in segments of one row); the end
+//   lanes of a segment read it from memory.  Only the row's first (left) or
+//   last (right) element takes the boundary condition.
+// * inner > 1 (shift_planes): threads walk along inner, one vector each,
+//   and take a strip of rows of the (n, inner) plane in batches of S rows,
+//   loaded at once so that S loads are in flight; the batch's last row
+//   stays in registers for the next pair, so x is read (S + 1) / S times,
+//   the extra row mostly from the L2.  The neighbour of a vector is the
+//   whole aligned vector one row away.  Only the plane's edge row takes the
+//   boundary condition.  S holds 16 values of the compute type a thread (4
+//   rows of float4; 8 rows on the scalar route).  A strip that a thread
+//   walked one row at a time, the previous row in registers, read x
+//   exactly once but kept one load in flight, and was slower on the card
+//   than one row a thread (PERF.md).
+//
+// The vector form needs 16-byte aligned x and out and a contiguous run (n,
+// or inner) that is a multiple of VW; any other view (a misaligned data
+// pointer, odd widths) runs the same kernels with VW = 1, one element a
+// thread.  Offsets inside a row or plane are 32-bit, on a 64-bit base per
+// row or plane; a row or plane of 2^31 - 2^13 elements or more takes the
+// 64-bit instantiation.  16-bit types load into float and round once at the
+// store; double computes in double.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 enum Bc : int { PERIODIC = 0, FILL = 1, EXTEND = 2, EXTRAPOLATE = 3 };
 
-template <typename T>
-__global__ void shift_kernel(const T* __restrict__ x, T* __restrict__ out,
-                             long long total, long long n, long long inner,
-                             int op, int left, int bc, double fill_value) {
+constexpr int kThreads = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
+// rows or planes below this many elements take 32-bit offsets (the slack
+// covers a block's overrun past the end and the neighbour row)
+constexpr long long kIndex32 = (1LL << 31) - (1LL << 13);
+
+template <typename T, int VW>
+struct alignas(sizeof(T) * VW) Vec {
+  T v[VW];
+};
+
+template <typename T, int VW, typename C>
+__device__ __forceinline__ void load_vec(C (&dst)[VW], const T* p) {
+  const Vec<T, VW> v = *reinterpret_cast<const Vec<T, VW>*>(p);
+#pragma unroll
+  for (int i = 0; i < VW; ++i) dst[i] = xt::to_compute(v.v[i]);
+}
+
+template <typename T, int VW, typename C>
+__device__ __forceinline__ void store_vec(T* p, const C (&src)[VW]) {
+  Vec<T, VW> v;
+#pragma unroll
+  for (int i = 0; i < VW; ++i) v.v[i] = xt::from_compute<T>(src[i]);
+  *reinterpret_cast<Vec<T, VW>*>(p) = v;
+}
+
+// 2 * e - in, rounded after the product as the plain version rounds it (no
+// FMA contraction, which would keep a product that overflows finite)
+__device__ __forceinline__ float extrapolate(float e, float in) {
+  return __fsub_rn(__fmul_rn(2.0f, e), in);
+}
+__device__ __forceinline__ double extrapolate(double e, double in) {
+  return __dsub_rn(__dmul_rn(2.0, e), in);
+}
+
+// The neighbour of an edge element e under the boundary condition: wrap is
+// the element at the far end (periodic), in the next element inward.
+template <typename C>
+__device__ __forceinline__ C edge_value(int bc, C e, C wrap, C in, C fill) {
+  switch (bc) {
+    case FILL: return fill;
+    case EXTEND: return e;
+    case EXTRAPOLATE: return extrapolate(e, in);
+    default: return wrap;  // PERIODIC
+  }
+}
+
+// inner == 1: rows of n contiguous elements, one vector of VW a thread.
+// Block (tx, ty): tx threads along a row (a power of two), ty rows; the
+// shuffles run in segments of min(tx, 32) lanes, each within one row.
+template <typename T, int VW, typename I>
+__global__ void __launch_bounds__(kThreads)
+shift_rows(const T* __restrict__ x, T* __restrict__ out, long long outer, I n, int op, int left,
+           int bc, double fill_value) {
   using C = typename xt::Compute<T>::type;
   const C fill = xt::round_to<T>(fill_value);
-  const long long wrap = (n - 1) * inner;
-  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const long long i = (idx / inner) % n;
-    const C xv = xt::to_compute(x[idx]);
-    const bool edge = left ? (i == 0) : (i == n - 1);
-    C nb;
-    if (!edge) {
-      nb = xt::to_compute(x[left ? idx - inner : idx + inner]);
-    } else if (bc == FILL) {
-      nb = fill;
-    } else if (bc == EXTEND) {
-      nb = xv;
-    } else if (bc == EXTRAPOLATE) {
-      // the inward neighbour of the edge, as a roll by one away from it
-      const long long in_idx = (n == 1) ? idx : (left ? idx + inner : idx - inner);
-      nb = C(2) * xv - xt::to_compute(x[in_idx]);
-    } else {  // PERIODIC
-      nb = xt::to_compute(x[left ? idx + wrap : idx - wrap]);
+  const int width = blockDim.x < 32 ? (int)blockDim.x : 32;
+  const int lane = threadIdx.x & (width - 1);
+  const I chunk = (I)blockDim.x * VW;
+  const I chunks = (n + chunk - 1) / chunk;
+  for (long long rb = (long long)blockIdx.y * blockDim.y; rb < outer;
+       rb += (long long)gridDim.y * blockDim.y) {
+    const long long row = rb + threadIdx.y;
+    const bool row_ok = row < outer;
+    const T* xr = x + row * (long long)n;
+    T* outr = out + row * (long long)n;
+    for (I cb = (I)blockIdx.x; cb < chunks; cb += (I)gridDim.x) {
+      const I p = cb * chunk + (I)threadIdx.x * VW;
+      const bool ok = row_ok && p < n;
+      C e[VW];
+      if (ok) {
+        load_vec<T, VW>(e, xr + p);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VW; ++i) e[i] = C(0);
+      }
+      // every lane of the warp takes part in the shuffles
+      const C below = __shfl_up_sync(kFullMask, e[VW - 1], 1, width);
+      const C above = __shfl_down_sync(kFullMask, e[0], 1, width);
+      if (!ok) continue;
+      C r[VW];
+      if (left) {
+        C nb;
+        if (p == 0) {
+          C in = e[0];
+          if (n > 1) {
+            if constexpr (VW > 1) in = e[1];
+            else if (bc == EXTRAPOLATE) in = xt::to_compute(xr[1]);
+          }
+          const C wrap = bc == PERIODIC ? xt::to_compute(xr[n - 1]) : e[0];
+          nb = edge_value(bc, e[0], wrap, in, fill);
+        } else {
+          nb = lane != 0 ? below : xt::to_compute(xr[p - 1]);
+        }
+        r[0] = xt::pair_op(op, nb, e[0]);
+#pragma unroll
+        for (int i = 1; i < VW; ++i) r[i] = xt::pair_op(op, e[i - 1], e[i]);
+      } else {
+        C nb;
+        if (p + VW >= n) {
+          C in = e[VW - 1];
+          if (n > 1) {
+            if constexpr (VW > 1) in = e[VW - 2];
+            else if (bc == EXTRAPOLATE) in = xt::to_compute(xr[n - 2]);
+          }
+          const C wrap = bc == PERIODIC ? xt::to_compute(xr[0]) : e[VW - 1];
+          nb = edge_value(bc, e[VW - 1], wrap, in, fill);
+        } else {
+          // the next lane holds the next vector of this row unless this
+          // lane ends its segment
+          nb = lane != width - 1 ? above : xt::to_compute(xr[p + VW]);
+        }
+#pragma unroll
+        for (int i = 0; i < VW - 1; ++i) r[i] = xt::pair_op(op, e[i], e[i + 1]);
+        r[VW - 1] = xt::pair_op(op, e[VW - 1], nb);
+      }
+      store_vec<T, VW>(outr + p, r);
     }
-    const C r = left ? xt::pair_op(op, nb, xv) : xt::pair_op(op, xv, nb);
-    out[idx] = xt::from_compute<T>(r);
+  }
+}
+
+// The edge row beside row 0 (before) or row n - 1 (after) of a plane: the
+// boundary condition, from rows read again (one row of the plane).
+template <typename T, int VW, typename I, typename C>
+__device__ __forceinline__ void edge_row(C (&dst)[VW], const T* xp, I c, I n, I inner, bool after,
+                                         int bc, C fill) {
+  const I edge = after ? n - 1 : 0;
+  C e[VW], wrap[VW], in[VW];
+  load_vec<T, VW>(e, xp + edge * inner + c);
+  if (bc == PERIODIC) load_vec<T, VW>(wrap, xp + (n - 1 - edge) * inner + c);
+  const I inward = n == 1 ? edge : (after ? n - 2 : 1);
+  if (bc == EXTRAPOLATE) load_vec<T, VW>(in, xp + inward * inner + c);
+#pragma unroll
+  for (int i = 0; i < VW; ++i)
+    dst[i] = edge_value(bc, e[i], bc == PERIODIC ? wrap[i] : e[i],
+                        bc == EXTRAPOLATE ? in[i] : e[i], fill);
+}
+
+// inner > 1: planes of (n, inner).  Block (tx, ty): tx threads along inner,
+// one vector each, and ty strips of `rows` rows.  A thread takes its strip
+// S rows at a time: it loads the S rows of a batch at once (S loads in
+// flight), keeps the batch's last row for the next pair, and writes S
+// output rows.
+template <typename T, int VW, int S, typename I>
+__global__ void __launch_bounds__(kThreads)
+shift_planes(const T* __restrict__ x, T* __restrict__ out, long long outer, I n, I inner, I rows,
+             int op, int left, int bc, double fill_value) {
+  using C = typename xt::Compute<T>::type;
+  const C fill = xt::round_to<T>(fill_value);
+  const I strips = (n + rows - 1) / rows;
+  const long long plane = (long long)n * inner;
+  for (long long o = blockIdx.z; o < outer; o += gridDim.z) {
+    const T* xp = x + o * plane;
+    T* outp = out + o * plane;
+    for (I s = (I)blockIdx.y * (I)blockDim.y + (I)threadIdx.y; s < strips;
+         s += (I)gridDim.y * (I)blockDim.y) {
+      const I j0 = s * rows;
+      const I j1 = j0 + rows < n ? j0 + rows : n;
+      // the strip reads rows j0 - left .. j1 - left; rows -1 and n are
+      // the edge rows of the boundary condition
+      const I last = j1 - left;
+      for (I c = ((I)blockIdx.x * (I)blockDim.x + (I)threadIdx.x) * VW; c < inner;
+           c += (I)gridDim.x * (I)blockDim.x * VW) {
+        // w[k] is row q + k; the pair (w[k], w[k + 1]) gives output row
+        // jb + k
+        C w[S + 1][VW];
+        I q = j0 - left;
+        if (q >= 0) {
+          load_vec<T, VW>(w[0], xp + q * inner + c);
+        } else {
+          edge_row<T, VW>(w[0], xp, c, n, inner, false, bc, fill);
+        }
+        for (I jb = j0; jb < j1; jb += S, q += S) {
+#pragma unroll
+          for (int k = 1; k <= S; ++k) {
+            if (q + k <= last && q + k < n) load_vec<T, VW>(w[k], xp + (q + k) * inner + c);
+          }
+#pragma unroll
+          for (int k = 1; k <= S; ++k) {
+            if (q + k == n && n <= last) edge_row<T, VW>(w[k], xp, c, n, inner, true, bc, fill);
+          }
+#pragma unroll
+          for (int k = 0; k < S; ++k) {
+            if (jb + k < j1) {
+              C r[VW];
+#pragma unroll
+              for (int i = 0; i < VW; ++i) r[i] = xt::pair_op(op, w[k][i], w[k + 1][i]);
+              store_vec<T, VW>(outp + (jb + k) * inner + c, r);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < VW; ++i) w[0][i] = w[S][i];
+        }
+      }
+    }
+  }
+}
+
+int pow2_at_least(long long v, int cap) {
+  int p = 1;
+  while (p < cap && p < v) p *= 2;
+  return p;
+}
+
+unsigned int capped(long long v, long long cap) {
+  return (unsigned int)(v < 1 ? 1 : (v > cap ? cap : v));
+}
+
+template <typename T, int VW, int S, typename I>
+void launch_planes(const T* x, T* out, long long outer, long long n, long long inner,
+                   long long rows, int op, int left, int bc, double fill_value,
+                   cudaStream_t stream) {
+  const long long nv = inner / VW;
+  const int tx = pow2_at_least(nv, 32);
+  const int ty = kThreads / tx;
+  const long long strips = (n + rows - 1) / rows;
+  const dim3 block(tx, ty);
+  const dim3 grid(capped((nv + tx - 1) / tx, 0x7fffffffLL), capped((strips + ty - 1) / ty, 65535),
+                  capped(outer, 65535));
+  shift_planes<T, VW, S, I><<<grid, block, 0, stream>>>(x, out, outer, (I)n, (I)inner, (I)rows,
+                                                         op, left, bc, fill_value);
+}
+
+template <typename T, int VW, typename I>
+void launch_as(const T* x, T* out, long long outer, long long n, long long inner, long long rows,
+               int op, int left, int bc, double fill_value, cudaStream_t stream) {
+  if (inner == 1) {
+    const long long nv = n / VW;
+    int tx = pow2_at_least(nv, 32);
+    const int ty = pow2_at_least(outer, kThreads / tx);
+    tx = kThreads / ty;
+    const dim3 block(tx, ty);
+    const dim3 grid(capped((nv + tx - 1) / tx, 0x7fffffffLL), capped((outer + ty - 1) / ty, 65535));
+    shift_rows<T, VW, I><<<grid, block, 0, stream>>>(x, out, outer, (I)n, op, left, bc,
+                                                      fill_value);
+    return;
+  }
+  // the batch: 16 values of the compute type a thread (at most 8 rows),
+  // one strip a batch, unless a strip length is asked for (then batches of
+  // the largest power of two that the strip holds, up to 32 values a
+  // thread or 8 rows); the 64-bit route keeps one
+  constexpr int kBatch = VW == 1 ? 8 : 16 / VW;
+  constexpr int kMaxBatch = 32 / VW < 8 ? 32 / VW : 8;
+  int batch = kBatch;
+  if (rows <= 0) {
+    rows = kBatch;
+  } else {
+    if (rows > n) rows = n;
+    batch = 1;
+    while (batch < kMaxBatch && 2 * batch <= rows) batch *= 2;
+  }
+  const auto go = [&](auto s) {
+    launch_planes<T, VW, decltype(s)::value, I>(x, out, outer, n, inner, rows, op, left, bc,
+                                                 fill_value, stream);
+  };
+  if constexpr (sizeof(I) == 8) {
+    go(std::integral_constant<int, kBatch>());
+  } else {
+    switch (batch) {
+      case 1: go(std::integral_constant<int, 1>()); break;
+      case 2: go(std::integral_constant<int, 2>()); break;
+      case 4: go(std::integral_constant<int, 4>()); break;
+      default: go(std::integral_constant<int, kMaxBatch>()); break;
+    }
   }
 }
 
 template <typename T>
-void launch(const void* x, void* out, long long outer, long long n, long long inner,
-            int op, int left, int bc, double fill_value, cudaStream_t stream) {
-  const long long total = outer * n * inner;
-  if (total == 0) return;
-  const int threads = 256;
-  shift_kernel<T><<<xt::blocks_for(total, threads), threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), total, n, inner, op, left,
-      bc, fill_value);
+void launch(const void* xv, void* outv, long long outer, long long n, long long inner,
+            long long rows, int op, int left, int bc, double fill_value, cudaStream_t stream) {
+  if (outer == 0 || n == 0 || inner == 0) return;
+  constexpr int VW = 16 / sizeof(T);
+  const T* x = static_cast<const T*>(xv);
+  T* out = static_cast<T*>(outv);
+  const long long run = inner == 1 ? n : inner;
+  const bool vec = run % VW == 0 &&
+                   ((reinterpret_cast<unsigned long long>(x) |
+                     reinterpret_cast<unsigned long long>(out)) & 15) == 0;
+  // the elements of one row (inner == 1) or plane, and the neighbour row
+  const bool narrow = (inner == 1 ? n : (n + 1) * inner) < kIndex32;
+  if (vec && narrow) {
+    launch_as<T, VW, int>(x, out, outer, n, inner, rows, op, left, bc, fill_value, stream);
+  } else if (vec) {
+    launch_as<T, VW, long long>(x, out, outer, n, inner, rows, op, left, bc, fill_value, stream);
+  } else if (narrow) {
+    launch_as<T, 1, int>(x, out, outer, n, inner, rows, op, left, bc, fill_value, stream);
+  } else {
+    launch_as<T, 1, long long>(x, out, outer, n, inner, rows, op, left, bc, fill_value, stream);
+  }
 }
 
 }  // namespace
 
-extern "C" int xt_shift(const void* x, void* out, int dtype, long long outer,
-                        long long n, long long inner, int op, int direction,
-                        int bc, double fill_value, void* stream) {
+// rows: the strip length of the inner > 1 kernel; 0 takes one batch
+// (xt_shift), a positive value forces it (to time and test strips).
+extern "C" int xt_shift_strips(const void* x, void* out, int dtype, long long outer, long long n,
+                               long long inner, int op, int direction, int bc, double fill_value,
+                               long long rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int left = direction == 0;
   switch (dtype) {
-    case xt::F32: launch<float>(x, out, outer, n, inner, op, left, bc, fill_value, s); break;
-    case xt::F64: launch<double>(x, out, outer, n, inner, op, left, bc, fill_value, s); break;
-    case xt::F16: launch<__half>(x, out, outer, n, inner, op, left, bc, fill_value, s); break;
-    case xt::BF16: launch<__nv_bfloat16>(x, out, outer, n, inner, op, left, bc, fill_value, s); break;
+    case xt::F32: launch<float>(x, out, outer, n, inner, rows, op, left, bc, fill_value, s); break;
+    case xt::F64: launch<double>(x, out, outer, n, inner, rows, op, left, bc, fill_value, s); break;
+    case xt::F16: launch<__half>(x, out, outer, n, inner, rows, op, left, bc, fill_value, s); break;
+    case xt::BF16:
+      launch<__nv_bfloat16>(x, out, outer, n, inner, rows, op, left, bc, fill_value, s);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int xt_shift(const void* x, void* out, int dtype, long long outer, long long n,
+                        long long inner, int op, int direction, int bc, double fill_value,
+                        void* stream) {
+  return xt_shift_strips(x, out, dtype, outer, n, inner, op, direction, bc, fill_value, 0, stream);
 }

@@ -5,11 +5,14 @@ PyTorch version.
 condition applied to the one wrapped edge line.  A CPU tensor takes the
 plain version, :func:`shift_plain` (the roll formulation of
 ``xgcm_tpu.ops.fused.fused_shift_op``); a CUDA tensor launches the kernel
-or raises.  Gradients run through the plain version.
+or raises, whatever its alignment and widths (the kernel has a scalar
+route for those).  Gradients run through the plain version; a tensor that
+needs none goes straight to the launch, past autograd.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -17,7 +20,7 @@ import torch
 from ..stencils import apply_pair
 from . import build
 
-__all__ = ["shift", "shift_plain", "SHIFT_DTYPES"]
+__all__ = ["launch_shift", "shift", "shift_plain", "SHIFT_DTYPES"]
 
 SHIFT_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16)
 _OPS = {"diff": 0, "interp": 1, "min": 2, "max": 3}
@@ -87,27 +90,43 @@ def shift(
         raise TypeError(f"shift kernel takes {SHIFT_DTYPES}, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("shift kernel needs a contiguous tensor")
-    shape = x.shape
-    outer = 1
-    for s in shape[:axis]:
-        outer *= int(s)
-    inner = 1
-    for s in shape[axis + 1:]:
-        inner *= int(s)
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return launch_shift(x, axis, op, direction, boundary, fill_value)
 
     def launch(x):
-        out = torch.empty_like(x)
-        status = build.load_library().xt_shift(
-            x.data_ptr(), out.data_ptr(), build.DTYPE_CODES[x.dtype],
-            outer, int(shape[axis]), inner,
-            _OPS[op], _DIRECTIONS[direction], _BCS[boundary], float(fill_value),
-            build.stream_ptr(x.device),
-        )
-        build.check_status("xt_shift", status)
-        build.LAUNCHES["shift"] += 1
-        return out
+        return launch_shift(x, axis, op, direction, boundary, fill_value)
 
     def plain(x):
         return shift_plain(x, axis, op, direction, boundary, fill_value)
 
     return build.PlainBackward.apply(launch, plain, x)
+
+
+def launch_shift(
+    x: torch.Tensor,
+    axis: int,
+    op: str,
+    direction: str,
+    boundary: Optional[str],
+    fill_value: float = 0.0,
+    rows: int = 0,
+) -> torch.Tensor:
+    """One launch of the kernel on a contiguous CUDA tensor that
+    :func:`shift` has checked.  ``rows`` is the strip length of the
+    ``inner > 1`` route: 0 takes the kernel's own (one batch of 16 values a
+    thread), a positive value forces it (to time and test the strips)."""
+    shape = x.shape
+    out = torch.empty_like(x)
+    args = (
+        x.data_ptr(), out.data_ptr(), build.DTYPE_CODES[x.dtype],
+        math.prod(shape[:axis]), shape[axis], math.prod(shape[axis + 1:]),
+        _OPS[op], _DIRECTIONS[direction], _BCS[boundary], float(fill_value),
+    )
+    lib, stream = build.load_library(), build.stream_ptr(x.device)
+    if rows:
+        status = lib.xt_shift_strips(*args, rows, stream)
+    else:
+        status = lib.xt_shift(*args, stream)
+    build.check_status("xt_shift", status)
+    build.LAUNCHES["shift"] += 1
+    return out
