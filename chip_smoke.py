@@ -22,16 +22,17 @@ face, 50 levels, float32):
 Each path runs with the launch counts set to 0 just before it and read just
 after; the script checks that every kernel of the path launched and that
 the results are right, and times each kernel beside its plain version
-(kernel A also beside ``torch.profiler``'s kernel time, on a 3-D face of
-50 levels, and at several strip lengths).  Kernel A is also held bit for
-bit against its plain version on shapes that break its index arithmetic
-(``SHIFT_SHAPES``: odd widths, n = 1 and 2 on each axis, a 4-D middle
-axis, each aligned and misaligned, in every dtype) and on two bf16 views
-of more than 2^31 elements (its 64-bit route).  Kernels C and F are also
-held against their plain versions on columns built to break an interval
-search (``INTERP_CASES``), and F against V single calls of C bit for bit; kernels G and H likewise on columns built to break
-the walk over a column's cells (``CONSERVATIVE_CASES``, infinite bounds
-among them), and H against V single calls of G bit for bit.
+(kernel A also beside ``torch.profiler``'s kernel time, and on a 3-D
+face of 50 levels).  Kernel A is also held bit for bit against its plain
+version on shapes that break its index arithmetic (``SHIFT_SHAPES``: odd
+widths, n = 1 and 2 on each axis, a 4-D middle axis, each aligned and
+misaligned, in every dtype) and on two bf16 views of more than 2^31
+elements, each aligned and misaligned (its 64-bit routes).  Kernels C and
+F are also held against their plain versions on columns built to break an
+interval search (``INTERP_CASES``), and F against V single calls of C bit
+for bit; kernels G and H likewise on columns built to break the walk over
+a column's cells (``CONSERVATIVE_CASES``, infinite bounds among them), and
+H against V single calls of G bit for bit.
 
     python3 chip_smoke.py [--seed N]
 
@@ -204,7 +205,8 @@ SHIFT_SHAPES = (
 )
 # a row (1-D) and a plane (axis 0 of (3, 2^30 + 2048), whose row 1 crosses
 # the offset 2^31 at column 2^30 - 2048) of more than 2^31 bf16 elements:
-# kernel A's 64-bit route, checked around the offset 2^31
+# kernel A's 64-bit routes (vector, and scalar on a misaligned view),
+# checked around the offset 2^31
 OFFSET_64 = 2 ** 31
 SHIFT_64BIT = ((OFFSET_64 + 4096,), (3, OFFSET_64 // 2 + 2048))
 
@@ -242,15 +244,20 @@ def sprinkled(gen, dev, shape, dtype, misaligned=False):
 
 
 def check_shift_64bit(check, k, gen, dev):
-    """Kernel A's 64-bit route on bf16 views of more than 2^31 elements,
-    compared on the edge rows and around the 2^31 offset."""
+    """Kernel A's 64-bit routes on bf16 views of more than 2^31 elements,
+    each aligned (16-byte vectors) and one element off (one element a
+    thread), compared on the edge rows and around the 2^31 offset."""
     half = 512
-    for shape in SHIFT_64BIT:
-        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    for shape, misaligned in itertools.product(SHIFT_64BIT, (False, True)):
+        numel = int(np.prod(shape))
+        x = torch.randn((numel + 1,), generator=gen, device=dev, dtype=torch.bfloat16)
+        x = (x[1:] if misaligned else x[:numel]).view(shape)
+        if misaligned != (x.data_ptr() % 16 != 0):
+            raise AssertionError(f"shift [64bit{shape}]: the view is not as misaligned as asked")
         axis = 0
         for op, direction, bc in itertools.product(SHIFT_OPS, ("left", "right"), SHIFT_BCS):
             got = k.shift(x, axis, op, direction, bc, 1.5)
-            label = f"64bit{shape}/{op}/{direction}/{bc}"
+            label = f"64bit{shape}{'/misaligned' if misaligned else ''}/{op}/{direction}/{bc}"
             if len(shape) == 1:
                 # the edge elements: the plain version on the first and last
                 # `half` elements side by side wraps as the whole row does;
@@ -322,26 +329,55 @@ def check_shift(check, gen, dev):
     check_shift_64bit(check, k, gen, dev)
     log(f"phase 3: shift kernel matches its plain version (bitwise f32/f64 and 16-bit against "
         f"float32 rounded once, 1 ulp bf16 against bf16) on the face, {cases} shape/dtype/"
-        f"alignment cases x 32 op/direction/boundary, and the 64-bit route on "
-        f"{len(SHIFT_64BIT)} bf16 views of more than 2^31 elements")
+        f"alignment cases x 32 op/direction/boundary, and the 64-bit routes on "
+        f"{len(SHIFT_64BIT)} bf16 views of more than 2^31 elements, aligned and misaligned")
+
+
+def profile_window(fn, reps):
+    """(``torch.profiler`` key averages, CUDA-event ms per call) of ``reps``
+    calls of fn after a warm-up.  fn and the synchronize raise as they do
+    outside the window; only a failure of the profiler itself is logged,
+    and gives None for the averages (the profiler is a measurement aid, not
+    a check)."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as exc:
+        log(f"torch.profiler failed to start: {exc!r}")
+        prof = None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    except BaseException:
+        if prof is not None:
+            with contextlib.suppress(Exception):
+                prof.stop()
+        raise
+    ms = start.elapsed_time(end) / reps
+    if prof is None:
+        return None, ms
+    try:
+        prof.stop()
+        return prof.key_averages(), ms
+    except Exception as exc:
+        log(f"torch.profiler failed: {exc!r}")
+        return None, ms
 
 
 def profiled_ms(fn, names, reps=20):
     """(device ms per call of the kernels whose names hold one of ``names``,
     their launches per call) from ``torch.profiler`` kernel events over
-    ``reps`` calls after a warm-up; (None, 0) when the trace holds no device
-    time for them."""
-    fn()
-    torch.cuda.synchronize()
-    try:
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if any(n in e.key for n in names)]
-    except Exception as exc:  # the profiler is a measurement aid, not a check
-        log(f"torch.profiler failed: {exc!r}")
-        return None, 0
+    ``reps`` calls; (None, 0) when the trace holds no device time for
+    them."""
+    averages, _ = profile_window(fn, reps)
+    events = [e for e in averages or () if any(n in e.key for n in names)]
     total_us = sum(e.self_device_time_total for e in events)
     count = sum(e.count for e in events)
     return (total_us / 1e3 / reps if total_us > 0 else None), count / reps
@@ -353,28 +389,15 @@ def device_breakdown(fn, reps=3, top=6):
     ``reps`` calls; the kernels run on one stream, so wall minus kernel time
     is the device's idle time.  None when the profiler gives no device
     time."""
-    fn()
-    torch.cuda.synchronize()
-    try:
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-        events = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
-    except Exception as exc:
-        log(f"torch.profiler failed: {exc!r}")
-        return None
+    averages, wall = profile_window(fn, reps)
+    events = sorted(averages or (), key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
     if busy <= 0:
         return None
     names = [(e.key.replace("(anonymous namespace)::", "").split("(")[0][-60:],
               e.self_device_time_total / 1e3 / reps)
              for e in events[:top]]
-    return start.elapsed_time(end) / reps, busy, names
+    return wall, busy, names
 
 
 SHIFT_KERNELS = ("shift_rows", "shift_planes")
@@ -383,9 +406,12 @@ SHIFT_KERNELS = ("shift_rows", "shift_planes")
 def time_shift(check, card, ug):
     """Kernel A's timing: the four 4320^2 f32 configurations beside the
     plain version, the one-call PyTorch equivalent where there is one and
-    the profiler's kernel time; strip lengths of the inner > 1 route against
-    one row a thread.  Returns ((ms, plain ms) of the slowest
-    configuration, its library ms or None)."""
+    the profiler's kernel time.  Returns ((ms of the slowest configuration,
+    plain ms of diff/left/axis 1), library ms of diff/left/axis 1): the four
+    kernel times lie within a few tenths of a microsecond, so which one is
+    slowest changes from run to run; the plain and library times come from
+    one fixed configuration, where ``torch.diff`` computes the same
+    function, whichever that is."""
     from xgcm_tpu_torch.ops.kernels.shift import shift, shift_plain
 
     # the one PyTorch call for a periodic diff: torch.diff with the wrapped
@@ -414,34 +440,17 @@ def time_shift(check, card, ug):
         log(f"time shift {op}/{direction}/axis{axis} {NY}x{NX} f32: kernel {k_ms:.4f} ms "
             f"(profiler kernel time {prof}), plain {p_ms:.4f} ms, torch.diff {lib} [{card}]")
         configs.append((k_ms, p_ms, lib_ms))
-    slowest = max(configs, key=lambda c: c[0])
-    log(f"time shift: slowest of the four {NY}x{NX} configurations {slowest[0]:.4f} ms; bound "
+    slowest = max(c[0] for c in configs)
+    _, p_ms, lib_ms = configs[0]
+    log(f"time shift: slowest of the four {NY}x{NX} configurations {slowest:.4f} ms; "
+        f"diff/left/axis1 plain {p_ms:.4f} ms and torch.diff {lib_ms:.4f} ms; bound "
         f"{bound(2 * NY * NX * 4, NY * NX)[0]:.4f} ms [{card}]")
-
-    time_strips(check, card, ug, 0, (1, 2, 4, 8, 16, 32, 64, 0), f"{NY}x{NX}/axis0")
-    return slowest[:2], slowest[2]
-
-
-def time_strips(check, card, x, axis, rows_list, label):
-    """Kernel A's planes route at forced strip lengths (0: its own), each
-    equal to the default launch bit for bit."""
-    from xgcm_tpu_torch.ops.kernels.shift import launch_shift, shift
-
-    want = shift(x, axis, "diff", "left", "periodic")
-    cells = []
-    for rows in rows_list:
-        check.compare("shift", f"{label}/rows{rows}", launch_shift(
-            x, axis, "diff", "left", "periodic", rows=rows), want, exact=True)
-        ms, _ = time_pair(lambda: launch_shift(x, axis, "diff", "left", "periodic", rows=rows),
-                          reps=50 if x.dim() == 2 else 5)
-        cells.append(f"{rows or 'auto'}: {ms:.4f}")
-    log(f"time shift strips {label} diff/left (rows a thread: ms): {', '.join(cells)} [{card}]")
+    return (slowest, p_ms), lib_ms
 
 
 def time_shift_3d(check, card, gen, dev):
     """Kernel A on one face of 50 levels, (50, 4320, 4320) f32, along each
-    axis beside the plain version and the bound, and the planes route's
-    strip lengths there."""
+    axis beside the plain version and the bound."""
     from xgcm_tpu_torch.ops.kernels.shift import shift, shift_plain
 
     # a 3-D tracer gradient on one face, each axis against the plain version
@@ -459,8 +468,6 @@ def time_shift_3d(check, card, gen, dev):
                                lambda: shift_plain(x3, axis, "diff", "left", "periodic"), reps=5)
         log(f"time shift diff/left/axis{axis} {NZ}x{NY}x{NX} f32: kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms, bound {b3[0]:.4f} ms ({b3[1]}) [{card}]")
-    time_strips(check, card, x3, 0, (1, 2, 4, 8, 16, 0), f"{NZ}x{NY}x{NX}/axis0")
-    time_strips(check, card, x3, 1, (1, 2, 4, 8, 16, 64, 0), f"{NZ}x{NY}x{NX}/axis1")
     del x3
     torch.cuda.empty_cache()
 
@@ -1398,8 +1405,7 @@ def main(argv=None) -> int:
             ("interp_linear.cu", "interp_linear_kernel", "NV = 1..8 x 4 dtype pairs"),
             ("conservative.cu", "conservative_kernel", "NV = 1..8 x 4 dtype pairs"),
             ("shift.cu", "shift_rows", "4 dtypes x vector/scalar x 32/64-bit offsets"),
-            ("shift.cu", "shift_planes", "4 dtypes x vector/scalar x batches of 1-8 rows "
-                                         "(32-bit offsets) or one (64-bit)")):
+            ("shift.cu", "shift_planes", "4 dtypes x vector/scalar x 32/64-bit offsets")):
         regs_of = [int(r) for fn, r in per_kernel if kernel in fn]
         if regs_of:
             log(f"build: {source} {kernel}, {len(regs_of)} instantiations ({what}), "

@@ -50,7 +50,7 @@ from xgcm_tpu_torch.ops.kernels.interp_linear import (
     interp_linear_multi,
 )
 from xgcm_tpu_torch.ops.kernels.face_shift import face_shift, face_shift_plain
-from xgcm_tpu_torch.ops.kernels.shift import launch_shift, shift, shift_plain
+from xgcm_tpu_torch.ops.kernels.shift import shift, shift_plain
 from xgcm_tpu_torch.ops.kernels.vorticity import vorticity, vorticity_plain
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -304,21 +304,6 @@ def test_shift_kernel_matches_plain(cuda, op, direction, bc, dtype):
             assert k.dtype == dtype
             assert torch.equal(torch.isnan(k), torch.isnan(p)), (shape, misaligned, axis)
             assert torch.equal(k.nan_to_num(), p.nan_to_num()), (shape, misaligned, axis)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("direction", ["left", "right"])
-@pytest.mark.parametrize("bc", ["periodic", "fill", "extend", "extrapolate"])
-def test_shift_kernel_strips_agree(cuda, direction, bc):
-    """The inner > 1 route gives the same result for any strip length,
-    including strips that do not divide n and strips longer than n."""
-    g = torch.Generator(device=cuda).manual_seed(1)
-    for shape, axis in (((37, 64), 0), ((3, 37, 24), 1), ((4, 37, 5), 1)):
-        x = torch.randn(shape, generator=g, device=cuda)
-        want = shift_plain(x, axis, "diff", direction, bc, 1.5)
-        for rows in (1, 2, 3, 5, 36, 37, 100):
-            got = launch_shift(x, axis, "diff", direction, bc, 1.5, rows=rows)
-            assert torch.equal(got, want), (shape, axis, rows)
 
 
 @pytest.mark.cuda

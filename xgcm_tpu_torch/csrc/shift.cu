@@ -22,16 +22,14 @@
 //   lanes of a segment read it from memory.  Only the row's first (left) or
 //   last (right) element takes the boundary condition.
 // * inner > 1 (shift_planes): threads walk along inner, one vector each,
-//   and take a strip of rows of the (n, inner) plane in batches of S rows,
-//   loaded at once so that S loads are in flight; the batch's last row
-//   stays in registers for the next pair, so x is read (S + 1) / S times,
-//   the extra row mostly from the L2.  The neighbour of a vector is the
-//   whole aligned vector one row away.  Only the plane's edge row takes the
-//   boundary condition.  S holds 16 values of the compute type a thread (4
-//   rows of float4; 8 rows on the scalar route).  A strip that a thread
-//   walked one row at a time, the previous row in registers, read x
-//   exactly once but kept one load in flight, and was slower on the card
-//   than one row a thread (PERF.md).
+//   and take one batch of S rows of the (n, inner) plane, loading its S + 1
+//   input rows at once so that S + 1 loads are in flight; x is read
+//   (S + 1) / S times, the extra row mostly from the L2.  The neighbour of
+//   a vector is the whole aligned vector one row away.  Only the plane's
+//   edge row takes the boundary condition.  S holds 16 values of the
+//   compute type a thread (4 rows of float4; 8 rows on the scalar route).
+//   Strips that a thread walked batch after batch, the last row kept in
+//   registers, read x once but were slower on the card (PERF.md).
 //
 // The vector form needs 16-byte aligned x and out and a contiguous run (n,
 // or inner) that is a multiple of VW; any other view (a misaligned data
@@ -40,8 +38,6 @@
 // row or plane; a row or plane of 2^31 - 2^13 elements or more takes the
 // 64-bit instantiation.  16-bit types load into float and round once at the
 // store; double computes in double.
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
@@ -187,59 +183,51 @@ __device__ __forceinline__ void edge_row(C (&dst)[VW], const T* xp, I c, I n, I 
 }
 
 // inner > 1: planes of (n, inner).  Block (tx, ty): tx threads along inner,
-// one vector each, and ty strips of `rows` rows.  A thread takes its strip
-// S rows at a time: it loads the S rows of a batch at once (S loads in
-// flight), keeps the batch's last row for the next pair, and writes S
-// output rows.
+// one vector each, and ty batches of S rows.  A thread loads the S + 1 rows
+// of its batch at once (S + 1 loads in flight) and writes S output rows.
 template <typename T, int VW, int S, typename I>
 __global__ void __launch_bounds__(kThreads)
-shift_planes(const T* __restrict__ x, T* __restrict__ out, long long outer, I n, I inner, I rows,
-             int op, int left, int bc, double fill_value) {
+shift_planes(const T* __restrict__ x, T* __restrict__ out, long long outer, I n, I inner, int op,
+             int left, int bc, double fill_value) {
   using C = typename xt::Compute<T>::type;
   const C fill = xt::round_to<T>(fill_value);
-  const I strips = (n + rows - 1) / rows;
+  const I batches = (n + S - 1) / S;
   const long long plane = (long long)n * inner;
   for (long long o = blockIdx.z; o < outer; o += gridDim.z) {
     const T* xp = x + o * plane;
     T* outp = out + o * plane;
-    for (I s = (I)blockIdx.y * (I)blockDim.y + (I)threadIdx.y; s < strips;
-         s += (I)gridDim.y * (I)blockDim.y) {
-      const I j0 = s * rows;
-      const I j1 = j0 + rows < n ? j0 + rows : n;
-      // the strip reads rows j0 - left .. j1 - left; rows -1 and n are
-      // the edge rows of the boundary condition
-      const I last = j1 - left;
+    for (I b = (I)blockIdx.y * (I)blockDim.y + (I)threadIdx.y; b < batches;
+         b += (I)gridDim.y * (I)blockDim.y) {
+      const I j0 = b * S;
+      const I rows = n - j0 < S ? n - j0 : S;
+      // w[k] is row q + k; the pair (w[k], w[k + 1]) gives output row
+      // j0 + k.  The batch reads rows q .. q + rows; rows -1 and n are the
+      // edge rows of the boundary condition
+      const I q = j0 - left;
       for (I c = ((I)blockIdx.x * (I)blockDim.x + (I)threadIdx.x) * VW; c < inner;
            c += (I)gridDim.x * (I)blockDim.x * VW) {
-        // w[k] is row q + k; the pair (w[k], w[k + 1]) gives output row
-        // jb + k
         C w[S + 1][VW];
-        I q = j0 - left;
         if (q >= 0) {
           load_vec<T, VW>(w[0], xp + q * inner + c);
         } else {
           edge_row<T, VW>(w[0], xp, c, n, inner, false, bc, fill);
         }
-        for (I jb = j0; jb < j1; jb += S, q += S) {
 #pragma unroll
-          for (int k = 1; k <= S; ++k) {
-            if (q + k <= last && q + k < n) load_vec<T, VW>(w[k], xp + (q + k) * inner + c);
+        for (int k = 1; k <= S; ++k) {
+          if (k <= rows && q + k < n) load_vec<T, VW>(w[k], xp + (q + k) * inner + c);
+        }
+#pragma unroll
+        for (int k = 1; k <= S; ++k) {
+          if (k <= rows && q + k == n) edge_row<T, VW>(w[k], xp, c, n, inner, true, bc, fill);
+        }
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          if (k < rows) {
+            C r[VW];
+#pragma unroll
+            for (int i = 0; i < VW; ++i) r[i] = xt::pair_op(op, w[k][i], w[k + 1][i]);
+            store_vec<T, VW>(outp + (j0 + k) * inner + c, r);
           }
-#pragma unroll
-          for (int k = 1; k <= S; ++k) {
-            if (q + k == n && n <= last) edge_row<T, VW>(w[k], xp, c, n, inner, true, bc, fill);
-          }
-#pragma unroll
-          for (int k = 0; k < S; ++k) {
-            if (jb + k < j1) {
-              C r[VW];
-#pragma unroll
-              for (int i = 0; i < VW; ++i) r[i] = xt::pair_op(op, w[k][i], w[k + 1][i]);
-              store_vec<T, VW>(outp + (jb + k) * inner + c, r);
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < VW; ++i) w[0][i] = w[S][i];
         }
       }
     }
@@ -257,23 +245,22 @@ unsigned int capped(long long v, long long cap) {
 }
 
 template <typename T, int VW, int S, typename I>
-void launch_planes(const T* x, T* out, long long outer, long long n, long long inner,
-                   long long rows, int op, int left, int bc, double fill_value,
-                   cudaStream_t stream) {
+void launch_planes(const T* x, T* out, long long outer, long long n, long long inner, int op,
+                   int left, int bc, double fill_value, cudaStream_t stream) {
   const long long nv = inner / VW;
   const int tx = pow2_at_least(nv, 32);
   const int ty = kThreads / tx;
-  const long long strips = (n + rows - 1) / rows;
+  const long long batches = (n + S - 1) / S;
   const dim3 block(tx, ty);
-  const dim3 grid(capped((nv + tx - 1) / tx, 0x7fffffffLL), capped((strips + ty - 1) / ty, 65535),
+  const dim3 grid(capped((nv + tx - 1) / tx, 0x7fffffffLL), capped((batches + ty - 1) / ty, 65535),
                   capped(outer, 65535));
-  shift_planes<T, VW, S, I><<<grid, block, 0, stream>>>(x, out, outer, (I)n, (I)inner, (I)rows,
-                                                         op, left, bc, fill_value);
+  shift_planes<T, VW, S, I><<<grid, block, 0, stream>>>(x, out, outer, (I)n, (I)inner, op, left,
+                                                         bc, fill_value);
 }
 
 template <typename T, int VW, typename I>
-void launch_as(const T* x, T* out, long long outer, long long n, long long inner, long long rows,
-               int op, int left, int bc, double fill_value, cudaStream_t stream) {
+void launch_as(const T* x, T* out, long long outer, long long n, long long inner, int op,
+               int left, int bc, double fill_value, cudaStream_t stream) {
   if (inner == 1) {
     const long long nv = n / VW;
     int tx = pow2_at_least(nv, 32);
@@ -285,39 +272,15 @@ void launch_as(const T* x, T* out, long long outer, long long n, long long inner
                                                       fill_value);
     return;
   }
-  // the batch: 16 values of the compute type a thread (at most 8 rows),
-  // one strip a batch, unless a strip length is asked for (then batches of
-  // the largest power of two that the strip holds, up to 32 values a
-  // thread or 8 rows); the 64-bit route keeps one
+  // the batch: 16 values of the compute type a thread (8 rows on the
+  // scalar route)
   constexpr int kBatch = VW == 1 ? 8 : 16 / VW;
-  constexpr int kMaxBatch = 32 / VW < 8 ? 32 / VW : 8;
-  int batch = kBatch;
-  if (rows <= 0) {
-    rows = kBatch;
-  } else {
-    if (rows > n) rows = n;
-    batch = 1;
-    while (batch < kMaxBatch && 2 * batch <= rows) batch *= 2;
-  }
-  const auto go = [&](auto s) {
-    launch_planes<T, VW, decltype(s)::value, I>(x, out, outer, n, inner, rows, op, left, bc,
-                                                 fill_value, stream);
-  };
-  if constexpr (sizeof(I) == 8) {
-    go(std::integral_constant<int, kBatch>());
-  } else {
-    switch (batch) {
-      case 1: go(std::integral_constant<int, 1>()); break;
-      case 2: go(std::integral_constant<int, 2>()); break;
-      case 4: go(std::integral_constant<int, 4>()); break;
-      default: go(std::integral_constant<int, kMaxBatch>()); break;
-    }
-  }
+  launch_planes<T, VW, kBatch, I>(x, out, outer, n, inner, op, left, bc, fill_value, stream);
 }
 
 template <typename T>
-void launch(const void* xv, void* outv, long long outer, long long n, long long inner,
-            long long rows, int op, int left, int bc, double fill_value, cudaStream_t stream) {
+void launch(const void* xv, void* outv, long long outer, long long n, long long inner, int op,
+            int left, int bc, double fill_value, cudaStream_t stream) {
   if (outer == 0 || n == 0 || inner == 0) return;
   constexpr int VW = 16 / sizeof(T);
   const T* x = static_cast<const T*>(xv);
@@ -329,39 +292,31 @@ void launch(const void* xv, void* outv, long long outer, long long n, long long 
   // the elements of one row (inner == 1) or plane, and the neighbour row
   const bool narrow = (inner == 1 ? n : (n + 1) * inner) < kIndex32;
   if (vec && narrow) {
-    launch_as<T, VW, int>(x, out, outer, n, inner, rows, op, left, bc, fill_value, stream);
+    launch_as<T, VW, int>(x, out, outer, n, inner, op, left, bc, fill_value, stream);
   } else if (vec) {
-    launch_as<T, VW, long long>(x, out, outer, n, inner, rows, op, left, bc, fill_value, stream);
+    launch_as<T, VW, long long>(x, out, outer, n, inner, op, left, bc, fill_value, stream);
   } else if (narrow) {
-    launch_as<T, 1, int>(x, out, outer, n, inner, rows, op, left, bc, fill_value, stream);
+    launch_as<T, 1, int>(x, out, outer, n, inner, op, left, bc, fill_value, stream);
   } else {
-    launch_as<T, 1, long long>(x, out, outer, n, inner, rows, op, left, bc, fill_value, stream);
+    launch_as<T, 1, long long>(x, out, outer, n, inner, op, left, bc, fill_value, stream);
   }
 }
 
 }  // namespace
 
-// rows: the strip length of the inner > 1 kernel; 0 takes one batch
-// (xt_shift), a positive value forces it (to time and test strips).
-extern "C" int xt_shift_strips(const void* x, void* out, int dtype, long long outer, long long n,
-                               long long inner, int op, int direction, int bc, double fill_value,
-                               long long rows, void* stream) {
+extern "C" int xt_shift(const void* x, void* out, int dtype, long long outer, long long n,
+                        long long inner, int op, int direction, int bc, double fill_value,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int left = direction == 0;
   switch (dtype) {
-    case xt::F32: launch<float>(x, out, outer, n, inner, rows, op, left, bc, fill_value, s); break;
-    case xt::F64: launch<double>(x, out, outer, n, inner, rows, op, left, bc, fill_value, s); break;
-    case xt::F16: launch<__half>(x, out, outer, n, inner, rows, op, left, bc, fill_value, s); break;
+    case xt::F32: launch<float>(x, out, outer, n, inner, op, left, bc, fill_value, s); break;
+    case xt::F64: launch<double>(x, out, outer, n, inner, op, left, bc, fill_value, s); break;
+    case xt::F16: launch<__half>(x, out, outer, n, inner, op, left, bc, fill_value, s); break;
     case xt::BF16:
-      launch<__nv_bfloat16>(x, out, outer, n, inner, rows, op, left, bc, fill_value, s);
+      launch<__nv_bfloat16>(x, out, outer, n, inner, op, left, bc, fill_value, s);
       break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
-}
-
-extern "C" int xt_shift(const void* x, void* out, int dtype, long long outer, long long n,
-                        long long inner, int op, int direction, int bc, double fill_value,
-                        void* stream) {
-  return xt_shift_strips(x, out, dtype, outer, n, inner, op, direction, bc, fill_value, 0, stream);
 }

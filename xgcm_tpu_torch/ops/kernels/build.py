@@ -89,8 +89,6 @@ _LP = ctypes.POINTER(ctypes.c_longlong)  # host array of strides
 SIGNATURES = {
     # x, out, dtype, outer, n, inner, op, direction, bc, fill_value, stream
     "xt_shift": (_P, _P, _I, _L, _L, _L, _I, _I, _I, _D, _P),
-    # the same with the strip length of the inner > 1 route (0: the kernel's own)
-    "xt_shift_strips": (_P, _P, _I, _L, _L, _L, _I, _I, _I, _D, _L, _P),
     # u, v, inv_dx, inv_dy, zeta, div, ke, dtype, ny, nx, stream
     "xt_cgrid_diagnostics": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _P),
     # theta, phi, target(f32), out, th_dtype, ph_dtype, cols, n, m,
@@ -228,11 +226,7 @@ def check_status(name: str, status: int) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    """The raw pointer of PyTorch's current stream on ``device``, as
-    ``torch.cuda.current_stream(device).cuda_stream`` gives it, without
-    building a Stream object on every launch."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return torch._C._cuda_getCurrentRawStream(index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def outputs(outs, count, shape, dtype, device):

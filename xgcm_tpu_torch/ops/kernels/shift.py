@@ -20,7 +20,7 @@ import torch
 from ..stencils import apply_pair
 from . import build
 
-__all__ = ["launch_shift", "shift", "shift_plain", "SHIFT_DTYPES"]
+__all__ = ["shift", "shift_plain", "SHIFT_DTYPES"]
 
 SHIFT_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16)
 _OPS = {"diff": 0, "interp": 1, "min": 2, "max": 3}
@@ -91,10 +91,10 @@ def shift(
     if not x.is_contiguous():
         raise ValueError("shift kernel needs a contiguous tensor")
     if not (x.requires_grad and torch.is_grad_enabled()):
-        return launch_shift(x, axis, op, direction, boundary, fill_value)
+        return _launch(x, axis, op, direction, boundary, fill_value)
 
     def launch(x):
-        return launch_shift(x, axis, op, direction, boundary, fill_value)
+        return _launch(x, axis, op, direction, boundary, fill_value)
 
     def plain(x):
         return shift_plain(x, axis, op, direction, boundary, fill_value)
@@ -102,19 +102,16 @@ def shift(
     return build.PlainBackward.apply(launch, plain, x)
 
 
-def launch_shift(
+def _launch(
     x: torch.Tensor,
     axis: int,
     op: str,
     direction: str,
     boundary: Optional[str],
     fill_value: float = 0.0,
-    rows: int = 0,
 ) -> torch.Tensor:
     """One launch of the kernel on a contiguous CUDA tensor that
-    :func:`shift` has checked.  ``rows`` is the strip length of the
-    ``inner > 1`` route: 0 takes the kernel's own (one batch of 16 values a
-    thread), a positive value forces it (to time and test the strips)."""
+    :func:`shift` has checked."""
     shape = x.shape
     out = torch.empty_like(x)
     args = (
@@ -122,11 +119,7 @@ def launch_shift(
         math.prod(shape[:axis]), shape[axis], math.prod(shape[axis + 1:]),
         _OPS[op], _DIRECTIONS[direction], _BCS[boundary], float(fill_value),
     )
-    lib, stream = build.load_library(), build.stream_ptr(x.device)
-    if rows:
-        status = lib.xt_shift_strips(*args, rows, stream)
-    else:
-        status = lib.xt_shift(*args, stream)
+    status = build.load_library().xt_shift(*args, build.stream_ptr(x.device))
     build.check_status("xt_shift", status)
     build.LAUNCHES["shift"] += 1
     return out
