@@ -3,7 +3,7 @@
 
 Builds the eight hand-written CUDA kernels from ``xgcm_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes of the main
-paths, and drives four paths at the width of LLC4320 (4320 x 4320 columns a
+paths, and drives five paths at the width of LLC4320 (4320 x 4320 columns a
 face, 50 levels, float32):
 
 * the C-grid analysis step (``xgcm_tpu_torch.entry.step``, kernels A and C)
@@ -17,7 +17,14 @@ face, 50 levels, float32):
 * the face analysis of a whole LLC4320 level (13 faces, ``grids.llc_grid``):
   cross-face tracer gradients, vorticity and divergence with the vector
   halo rules, and the 2-D vector interpolation, eight launches of the
-  per-face shift kernel E, each result equal to the generic halo engine's.
+  per-face shift kernel E, each result equal to the generic halo engine's;
+* the metric path at one face of 50 levels: the tracer budget of
+  examples/tracer_budget.py (six launches of kernel A, closed to 1e-4 in
+  float32) and the metric-weighted calculus of a MITgcm C-grid
+  (``grids.mitgcm_c_grid``: derivative, integrate, average, cumint, cumsum
+  and ``metric_weighted=``, each with the launches of A its route implies),
+  the identities of the calculus at full width, and both on a small grid
+  against the CPU.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; the script checks that every kernel of the path launched and that
@@ -145,6 +152,12 @@ class Checker:
             ok = bool((diff <= atol + rtol * want_f.abs().nan_to_num(0.0)).all())
         if not ok:
             raise AssertionError(f"{name} [{label}]: max abs err {err:.3e} beyond tolerance")
+
+
+def same_values(a, b):
+    """Equal values with NaN in the same places."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(), b.nan_to_num()))
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -1355,11 +1368,332 @@ def check_face_small(gen, dev, xtt):
         b = on_cpu[name]
         if a.dims != b.dims or a.data.device.type != dev.type:
             raise AssertionError(f"face analysis on the card: {name} has wrong dims or device")
-        a = a.data.cpu()
-        if not (torch.equal(torch.isnan(a), torch.isnan(b.data))
-                and torch.equal(a.nan_to_num(), b.data.nan_to_num())):
+        if not same_values(a.data.cpu(), b.data):
             raise AssertionError(f"face analysis on the card: {name} differs from the CPU")
     log("phase 8: the face analysis on a (3, 13, 48, 48) LLC grid on the card == on the CPU")
+
+
+# ---- phase 9: the metric path ------------------------------------------------
+METRIC_SMALL = (12, 40, 72)  # (nz, ny, nx) of the card-against-CPU check
+
+
+def budget_grid(xtt, nx, ny, nz, dtype=np.float32):
+    """The grid of ``build_grid`` in examples/tracer_budget.py: dx/dy/dz
+    metrics at both positions of each axis, X and Y periodic, Z ``fill``
+    with 0; metrics in ``dtype`` (LLC4320's grid files are float32)."""
+    ds = xtt.Dataset(coords={
+        "xc": ("xc", np.arange(nx) + 0.5), "xg": ("xg", np.arange(nx) * 1.0),
+        "yc": ("yc", np.arange(ny) + 0.5), "yg": ("yg", np.arange(ny) * 1.0),
+        "zc": ("zc", np.arange(nz) + 0.5), "zg": ("zg", np.arange(nz) * 1.0),
+        "dx_c": ("xc", (1.0 + 0.1 * np.sin(np.arange(nx))).astype(dtype)),
+        "dx_g": ("xg", (1.0 + 0.1 * np.sin(np.arange(nx) - 0.5)).astype(dtype)),
+        "dy_c": ("yc", (1.0 + 0.05 * np.cos(np.arange(ny))).astype(dtype)),
+        "dy_g": ("yg", (1.0 + 0.05 * np.cos(np.arange(ny) - 0.5)).astype(dtype)),
+        "dz_c": ("zc", (1.0 + 0.2 * np.arange(nz) / nz).astype(dtype)),
+        "dz_g": ("zg", (1.0 + 0.2 * (np.arange(nz) - 0.5) / nz).astype(dtype)),
+    })
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return xtt.Grid(
+            ds,
+            coords={"X": {"center": "xc", "left": "xg"}, "Y": {"center": "yc", "left": "yg"},
+                    "Z": {"center": "zc", "left": "zg"}},
+            boundary={"X": "periodic", "Y": "periodic", "Z": "fill"},
+            fill_value=0.0,
+            metrics={("X",): ["dx_c", "dx_g"], ("Y",): ["dy_c", "dy_g"],
+                     ("Z",): ["dz_c", "dz_g"]},
+            autoparse_metadata=False,
+        )
+
+
+def budget_inputs(xtt, gen, dev, nz, ny, nx):
+    """theta, u, v and w of examples/tracer_budget.py on the card, w = 0 on
+    the surface face."""
+    def field(dims, offset=0.0, uniform=False):
+        make = torch.rand if uniform else torch.randn
+        return xtt.GriddedArray(make((nz, ny, nx), generator=gen, device=dev).add_(offset),
+                                dims)
+
+    theta = field(("zc", "yc", "xc"), 20.0, uniform=True)
+    u, v = field(("zc", "yc", "xg")), field(("zc", "yg", "xc"))
+    w = field(("zg", "yc", "xc"))
+    w.data[0] = 0.0
+    return theta, u, v, w
+
+
+def budget_terms(grid, theta, u, v, w):
+    """``budget_terms`` of examples/tracer_budget.py on the port: the
+    advective flux divergence, the cell volumes and the tendency.  Each
+    tracer interpolate and flux is dropped once it is used, so that a 50 x
+    4320 x 4320 level set fits the card; the arithmetic is the example's."""
+    # the tracer on the three face families, times the transport and the
+    # face area from the metric registry
+    th_x = grid.interp(theta, "X")
+    fx = u * th_x * grid.get_metric(th_x, ("Y", "Z"))
+    del th_x
+    th_y = grid.interp(theta, "Y")
+    fy = v * th_y * grid.get_metric(th_y, ("X", "Z"))
+    del th_y
+    th_z = grid.interp(theta, "Z", boundary="extend")
+    fz = w * th_z * grid.get_metric(th_z, ("X", "Y"))
+    del th_z
+    # divergence back on the centres; the vertical fill_value=0 is the
+    # closed budget's "no flux through the surface and bottom"
+    div = grid.diff(fx, "X", to="center")
+    del fx
+    div = div + grid.diff(fy, "Y", to="center")
+    del fy
+    div = div + grid.diff(fz, "Z", to="center")
+    del fz
+    vol = grid.get_metric(theta, ("X", "Y", "Z"))
+    return div, vol, -div / vol
+
+
+def budget_closure(grid, tendency):
+    """|integral of the tendency| / integral of |tendency| over the
+    volume, which the flux form makes 0 up to rounding."""
+    total = grid.integrate(tendency, ["X", "Y", "Z"])
+    scale = grid.integrate(abs(tendency), ["X", "Y", "Z"])
+    return abs(float(total.data)) / float(scale.data)
+
+
+def calculus_calls(grid, theta):
+    """BASELINE.json config 3 on a MITgcm C-grid: name -> (call, launches of
+    kernel A its route implies).  Each diff or interp on float data is one
+    launch; a metric away from the result's position adds one for
+    ``interp_like`` (condition 2 of ``get_metric``)."""
+    return {
+        # dxC lies on YC, which the X difference keeps
+        "derivative X": (lambda: grid.derivative(theta, "X"), 1),
+        # the Y and Z differences leave YC and Z: dyC and drF are interpolated
+        "derivative Y": (lambda: grid.derivative(theta, "Y"), 2),
+        "derivative Z": (lambda: grid.derivative(theta, "Z"), 2),
+        "integrate X,Y": (lambda: grid.integrate(theta, ["X", "Y"]), 0),
+        "average X,Y": (lambda: grid.average(theta, ["X", "Y"]), 0),
+        "integrate Z": (lambda: grid.integrate(theta, "Z"), 0),
+        "cumint Z": (lambda: grid.cumint(theta, "Z", to="outer"), 0),
+        # theta * rA, interpolated, over rA interpolated to the result
+        "interp X metric_weighted X,Y": (
+            lambda: grid.interp(theta, "X", metric_weighted=["X", "Y"]), 2),
+        "cumsum X": (lambda: grid.cumsum(theta, "X"), 0),
+    }
+
+
+SUMS = ("integrate X,Y", "average X,Y", "integrate Z")
+
+
+def check_metric_small(gen, dev, xtt):
+    """The budget and the calculus on a small grid on the card against the
+    same calls on the CPU: the shifts, products and prefix sums value for
+    value, the reductions within 1e-6 relative (another summation order)."""
+    nz, ny, nx = METRIC_SMALL
+    theta, u, v, w = budget_inputs(xtt, gen, dev, nz, ny, nx)
+    theta.data[3, 5, 7] = float("nan")
+    mit = {d: xtt.grids.mitgcm_c_grid(nx=nx, ny=ny, nz=nz)[1] for d in ("card", "cpu")}
+
+    def run(where, d):
+        ins = [a if where == "card" else xtt.GriddedArray(a.data.cpu(), a.dims)
+               for a in (theta, u, v, w)]
+        grid = budget_grid(xtt, nx, ny, nz)
+        out = dict(zip(("div", "vol", "tendency"), budget_terms(grid, *ins)))
+        th = xtt.GriddedArray(ins[0].data, ("Z", "YC", "XC"))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            for name, (call, _) in calculus_calls(mit[where], th).items():
+                out[name] = call()
+        return out
+
+    on_card, on_cpu = run("card", dev), run("cpu", torch.device("cpu"))
+    for name, a in on_card.items():
+        b = on_cpu[name]
+        if a.dims != b.dims or a.dtype != b.dtype or a.data.device.type != dev.type:
+            raise AssertionError(f"metric path on the card: {name} has wrong dims, dtype or "
+                                 f"device")
+        got = a.data.cpu()
+        if name in SUMS:
+            ok = torch.allclose(got, b.data, rtol=1e-6, atol=0.0, equal_nan=True)
+        else:
+            ok = same_values(got, b.data)
+        if not ok:
+            raise AssertionError(f"metric path on the card: {name} differs from the CPU")
+    log(f"phase 9: the budget and the calculus on a {nz} x {ny} x {nx} grid on the card == on "
+        f"the CPU (sums within 1e-6 relative, the rest value for value)")
+
+
+def check_identities(grid, theta, ds):
+    """The calculus identities at full width on the MITgcm grid: the
+    integral of ones is the area, the mean of a constant is the constant,
+    the last level of cumint to the outer position is the integral, the X
+    derivative of a field linear in X is 1 away from the wrap, and NaN
+    cells are skipped by integrate and average."""
+    xtt_ga = type(theta)
+    dev = theta.data.device
+    ny, nx = theta.shape[1:]
+    ra = torch.as_tensor(ds["rA"].values, device=dev)
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+
+    ones = xtt_ga(torch.ones((ny, nx), device=dev), ("YC", "XC"))
+    errs = {"area": rel(grid.integrate(ones, ["X", "Y"]).data, ra.sum())}
+    const = xtt_ga(torch.full(theta.shape, 7.25, device=dev), theta.dims)
+    errs["mean of a constant"] = rel(grid.average(const, ["X", "Y"]).data,
+                                     torch.tensor(7.25, dtype=torch.float64, device=dev))
+    del const
+    last = grid.cumint(theta, "Z", to="outer").isel({"Zp1": -1})
+    errs["cumint last level"] = rel(last.data, grid.integrate(theta, "Z").data)
+    del last
+    dxc = torch.as_tensor(ds["dxC"].values, device=dev)
+    ramp = xtt_ga(torch.arange(nx, device=dev, dtype=torch.float64)[None, :] * dxc[:, None],
+                  ("YC", "XC"))
+    slope = grid.derivative(ramp, "X").data[:, 1:]
+    errs["linear ramp"] = float((slope - 1.0).abs().max())
+    del ramp, slope
+    for name, err in errs.items():
+        if not err < 1e-6:  # also fails on NaN
+            raise AssertionError(f"phase 9 identity '{name}': error {err:.3e}")
+    holes = theta.data.clone()
+    holes[::7, ::97, ::89] = float("nan")
+    zeros = torch.nan_to_num(holes, nan=0.0)
+    with_nan = xtt_ga(holes, theta.dims)
+    i_nan = grid.integrate(with_nan, ["X", "Y"]).data
+    i_zero = grid.integrate(xtt_ga(zeros, theta.dims), ["X", "Y"]).data
+    valid = xtt_ga((~torch.isnan(holes)).float(), theta.dims)
+    a_nan = grid.average(with_nan, ["X", "Y"]).data
+    a_want = i_nan / grid.integrate(valid, ["X", "Y"]).data
+    del holes, zeros, with_nan, valid
+    if not (torch.isfinite(i_nan).all() and torch.isfinite(a_nan).all()
+            and rel(i_nan, i_zero) < 1e-12 and rel(a_nan, a_want) < 1e-12):
+        raise AssertionError("phase 9: NaN cells are not skipped by integrate/average")
+    log("phase 9: identities at full width hold (largest relative error " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()) + "; NaN cells skipped by integrate and "
+        "average)")
+
+
+def kernel_class(name: str) -> str:
+    """The class of a profiler event: kernel A, elementwise, reduction,
+    copy or other."""
+    if any(k in name for k in SHIFT_KERNELS):
+        return "kernel A"
+    if "Memcpy HtoD" in name:
+        return "Memcpy HtoD"
+    if "Memcpy" in name or "Memset" in name:
+        return "copies"
+    if "reduce_kernel" in name:
+        return "reductions"
+    if "elementwise" in name:
+        return "elementwise"
+    return "other"
+
+
+def budget_breakdown(fn, reps=3):
+    """(wall ms, {class: device ms}) per call of fn from one profiler
+    window; None when the profiler gives no device time."""
+    averages, wall = profile_window(fn, reps)
+    split = {}
+    for e in averages or ():
+        if e.self_device_time_total > 0:
+            c = kernel_class(e.key)
+            split[c] = split.get(c, 0.0) + e.self_device_time_total / 1e3 / reps
+    return (wall, split) if split else None
+
+
+def metric_phase(xtt, build, gen, dev, card, nz=NZ, ny=NY, nx=NX):
+    """Phase 9: the tracer budget of examples/tracer_budget.py and the
+    metric-weighted calculus on a MITgcm C-grid, at one LLC4320 face of nz
+    levels, with the launch counts of kernel A their routes imply, the
+    card against the CPU at a small size, the identities at full width,
+    their times, peak memory and the profiler's split of the budget."""
+    # (a) the tracer budget; about 9 fields of nz x ny x nx f32 are live
+    # at its peak (the four inputs, three fluxes, two temporaries)
+    grid = budget_grid(xtt, nx, ny, nz)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)  # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats(dev)
+    theta, u, v, w = budget_inputs(xtt, gen, dev, nz, ny, nx)
+    gb = theta.data.numel() * 4 / 1e9
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    div, vol, tendency = budget_terms(grid, theta, u, v, w)
+    closure = budget_closure(grid, tendency)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = build.launch_counts()
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    log(f"phase 9: tracer budget ({nz}, {ny}, {nx}) f32 data and metrics ({gb:.2f} GB a field): "
+        f"launches {counts}; closure |int tendency| / int |tendency| = {closure:.3e}; first "
+        f"call {first_ms:.1f} ms (host clock, with the metrics' one copy to the card); peak "
+        f"device memory {peak:.2f} GB with the inputs, above the {base / 1e9:.2f} GB that "
+        f"earlier phases hold")
+    if counts["shift"] != 6 or counts["face_shift"] != 0:
+        raise AssertionError(f"the budget launched shift {counts['shift']} and face_shift "
+                             f"{counts['face_shift']} times, expected 6 and 0")
+    if not closure < 1e-4:
+        raise AssertionError(f"the budget does not close: {closure:.3e}")
+    for name, r in (("div", div), ("tendency", tendency)):
+        if r.dims != ("zc", "yc", "xc") or r.dtype != torch.float32:
+            raise AssertionError(f"budget {name}: {r.dims} {r.dtype}")
+    if not bool(torch.isfinite(tendency.data).all()):
+        raise AssertionError("budget: non-finite tendency")
+    del div, vol, tendency
+
+    def budget():
+        return budget_closure(grid, budget_terms(grid, theta, u, v, w)[2])
+
+    budget_ms, _ = time_pair(budget, reps=3)
+    log(f"time tracer budget ({nz}, {ny}, {nx}) f32, terms and closure: {budget_ms:.4f} ms "
+        f"[{card}]")
+    brk = budget_breakdown(budget)
+    if brk is None:
+        log("profile budget: no device time from torch.profiler (not measured)")
+    else:
+        wall, split = brk
+        busy = sum(split.values())
+        log(f"profile budget: {wall:.4f} ms a call (CUDA events inside the profiler), device "
+            f"busy {busy:.4f} ms, idle share {max(0.0, 1 - busy / wall):.4f}; " + "; ".join(
+                f"{k} {ms:.4f} ms" for k, ms in sorted(split.items(), key=lambda kv: -kv[1]))
+            + f"; Memcpy HtoD in the window: {'yes' if 'Memcpy HtoD' in split else 'none'} "
+            f"[{card}]")
+        if "Memcpy HtoD" in split:
+            raise AssertionError("the budget copies from the host inside its window")
+    del u, v, w, budget
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (b) the calculus on mitgcm_c_grid (f64 metrics: the derivatives and
+    # the integrals are f64, twice a field's bytes)
+    ds, mit = xtt.grids.mitgcm_c_grid(nx=nx, ny=ny, nz=nz)
+    th = xtt.GriddedArray(theta.data, ("Z", "YC", "XC"), name="theta")
+    del theta
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # metrics interpolated to the diffs
+        for name, (call, want) in calculus_calls(mit, th).items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            build.reset_launch_counts()
+            out = call()
+            torch.cuda.synchronize()
+            got = build.launch_counts()
+            peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+            if got["shift"] != want or got["face_shift"] != 0:
+                raise AssertionError(f"{name} launched shift {got['shift']} and face_shift "
+                                     f"{got['face_shift']} times, expected {want} and 0")
+            if not bool(torch.isfinite(out.data).all()):
+                raise AssertionError(f"{name}: non-finite values")
+            what = f"dims {out.dims}, {out.dtype}"
+            del out
+            ms, _ = time_pair(call, reps=3)
+            log(f"phase 9: {name}: {what}, {want} launch(es) of A; {ms:.4f} ms; peak device "
+                f"memory {peak:.2f} GB above theta and the metrics [{card}]")
+        check_identities(mit, th, ds)
+    del th
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # (c) the card against the CPU
+    check_metric_small(gen, dev, xtt)
+
 
 
 def main(argv=None) -> int:
@@ -1686,6 +2020,10 @@ def main(argv=None) -> int:
         f"gathers, the vorticity and divergence arithmetic): {face_ms:.4f} ms [{card}]")
     del th, lu, lv
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the metric path at one LLC4320 face -------------------
+    metric_phase(xtt, build, gen, dev, card)
 
     report = {"kernels": [
         {

@@ -128,8 +128,15 @@ def test_unported_grid_features_raise():
     for grid_cls, data in ((xgcm_tpu.Grid, comodo_ds()), (xtt.Grid, ds)):
         with pytest.raises(ValueError, match="Face dimension face does not exist"):
             grid_cls(data, face_connections=fc)
-    with pytest.raises(NotImplementedError):
-        xtt.Grid(ds, metrics={("X",): ["XC"]})
+    # metrics are ported: both packages register the same variables, and
+    # raise the same KeyError for a variable the dataset lacks
+    g_j = xgcm_tpu.Grid(comodo_ds(), metrics={("X",): ["XC"]})
+    g_t = xtt.Grid(ds, metrics={("X",): ["XC"]})
+    assert ({k: [v.name for v in vs] for k, vs in g_t._metrics.items()}
+            == {k: [v.name for v in vs] for k, vs in g_j._metrics.items()})
+    for grid_cls, data in ((xgcm_tpu.Grid, comodo_ds()), (xtt.Grid, ds)):
+        with pytest.raises(KeyError, match="not found in dataset"):
+            grid_cls(data, metrics={("X",): ["nonexistent"]})
 
 
 def test_from_numpy_dataset_keeps_numpy_coords_and_tensor_vars():

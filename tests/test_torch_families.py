@@ -13,7 +13,7 @@ import torch
 
 import xgcm_tpu
 import xgcm_tpu_torch as xtt
-from tests.torch_parity import assert_bitwise
+from tests.torch_parity import assert_bitwise, assert_close
 from xgcm_tpu import grids as jax_grids
 
 
@@ -45,7 +45,9 @@ def test_connection_tables_are_the_jax_packages():
     "factory, kwargs",
     [("cubed_sphere_grid", dict(n=4)), ("cubed_sphere_grid", dict()),
      ("llc_grid", dict(n=6)), ("llc_grid", dict()),
-     ("mom6_symmetric_grid", dict(nx=12, ny=8)), ("mom6_symmetric_grid", dict())],
+     ("mom6_symmetric_grid", dict(nx=12, ny=8)), ("mom6_symmetric_grid", dict()),
+     ("mitgcm_c_grid", dict(nx=12, ny=8, nz=5)), ("mitgcm_c_grid", dict()),
+     ("nemo_c_grid", dict(nx=12, ny=8, nz=5)), ("nemo_c_grid", dict())],
 )
 def test_factory_builds_the_same_grid(factory, kwargs):
     ds_j, g_j = getattr(jax_grids, factory)(**kwargs)
@@ -56,6 +58,8 @@ def test_factory_builds_the_same_grid(factory, kwargs):
     assert ds_t.dims == ds_j.dims
     for name, c in ds_j.coords.items():
         np.testing.assert_array_equal(ds_t.coords[name].values, np.asarray(c.data))
+    assert ({k: [(v.name, v.dims) for v in vs] for k, vs in g_t._metrics.items()}
+            == {k: [(v.name, v.dims) for v in vs] for k, vs in g_j._metrics.items()})
 
 
 def _analysis(grid, theta, u, v):
@@ -121,3 +125,26 @@ def test_mom6_outer_positions_match_jax(op, boundary):
         for axis in ("X", "Y"):
             _check(getattr(g_t, op)(a_t, axis, boundary=boundary),
                    getattr(g_j, op)(a_j, axis, boundary=boundary))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("factory, dims", [("mitgcm_c_grid", ("Z", "YC", "XC")),
+                                           ("nemo_c_grid", ("z_c", "y_c", "x_c"))])
+def test_c_grid_calculus_matches_jax(factory, dims, dtype):
+    """derivative along each axis (diffs bit for bit; the metrics are f64,
+    so f32 data gives f64 as in JAX) and integrate over X-Y and Z (the JAX
+    tests' rtol, 1e-7, in f64), with NaN and infinities in the data."""
+    _, g_j = getattr(jax_grids, factory)(nx=12, ny=8, nz=5)
+    _, g_t = getattr(xtt.grids, factory)(nx=12, ny=8, nz=5)
+    rng = np.random.RandomState(8)
+    a = rng.randn(5, 8, 12).astype(dtype)
+    a[1, 2, 3], a[0, 4, 5], a[3, 7, 11] = np.nan, np.inf, -np.inf
+    th_j, th_t = _pair(a, dims)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # metrics interpolated to the diffs
+        for axis in ("X", "Y", "Z"):
+            _check(g_t.derivative(th_t, axis), g_j.derivative(th_j, axis))
+    for axes in (["X", "Y"], "Z"):
+        r_j, r_t = g_j.integrate(th_j, axes), g_t.integrate(th_t, axes)
+        assert r_t.dims == r_j.dims and r_t.values.dtype == np.asarray(r_j.data).dtype
+        assert_close(r_t, r_j, rtol=1e-7)

@@ -6,8 +6,9 @@ a wrapper given a tensor off the CPU on a host without CUDA raises instead
 of falling back.  On a CUDA card (tests marked ``cuda``, skipped elsewhere):
 each kernel against its plain version on the same inputs, the multi-variable
 kernels against single calls, gradients through the kernels against the
-plain versions', and the analysis step, the density-space transforms and the
-face analysis of an LLC grid on the card against the same calls on the CPU.
+plain versions', and the analysis step, the density-space transforms, the
+face analysis of an LLC grid and the tracer budget on the card against the
+same calls on the CPU.
 On the CPU, the plain versions of kernels D and E also against the Pallas
 kernels they replace (interpret mode) and the JAX formulations.  The card's
 machine has no JAX, so JAX is imported inside the CPU tests only.
@@ -716,4 +717,30 @@ def test_face_analysis_on_card_matches_cpu(cuda):
     on_cpu, _ = run(torch.device("cpu"))
     for a, b in zip(on_card, on_cpu):
         assert a.dims == b.dims and a.data.device.type == "cuda"
+        _assert_same_values(a.data.cpu(), b.data)
+
+
+@pytest.mark.cuda
+def test_tracer_budget_on_card_matches_cpu(cuda):
+    """The tracer budget of examples/tracer_budget.py (chip_smoke's copy)
+    on a 12 x 40 x 72 grid: exactly 6 launches of kernel A (three interps,
+    three diffs) and none of E on the card, the same values as on the
+    CPU."""
+    nz, ny, nx = chip_smoke.METRIC_SMALL
+    g = torch.Generator(device=cuda).manual_seed(23)
+    ins = chip_smoke.budget_inputs(xtt, g, cuda, nz, ny, nx)
+    ins[0].data[2, 3, 4] = float("nan")
+
+    def run(dev):
+        grid = chip_smoke.budget_grid(xtt, nx, ny, nz)
+        build.reset_launch_counts()
+        out = chip_smoke.budget_terms(grid, *(xtt.GriddedArray(a.data.to(dev), a.dims)
+                                              for a in ins))
+        return out, build.launch_counts()
+
+    on_card, counts = run(cuda)
+    assert counts["shift"] == 6 and counts["face_shift"] == 0
+    on_cpu, _ = run(torch.device("cpu"))
+    for a, b in zip(on_card, on_cpu):
+        assert a.dims == b.dims and a.dtype == b.dtype and a.data.device.type == "cuda"
         _assert_same_values(a.data.cpu(), b.data)

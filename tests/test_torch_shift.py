@@ -168,12 +168,15 @@ def test_vector_component_and_multi_axis_dispatch():
 
 
 def test_non_gridded_input_raises_type_error():
-    _, g_t, shape = _grids(np.float64)
+    g_j, g_t, shape = _grids(np.float64)
     with pytest.raises(TypeError):
         g_t.diff(torch.zeros(shape), "X")
-    with pytest.raises(NotImplementedError):
-        g_t.diff(xtt.GriddedArray(torch.zeros(shape), ("zc", "yc", "xc")), "X",
-                 metric_weighted=["X"])
+    # metric_weighted= is ported: on a grid without metrics both packages
+    # raise get_metric's KeyError
+    for g, da in ((g_t, xtt.GriddedArray(torch.zeros(shape), ("zc", "yc", "xc"))),
+                  (g_j, xgcm_tpu.GriddedArray(np.zeros(shape), ("zc", "yc", "xc")))):
+        with pytest.raises(KeyError, match="Unable to find any combinations"):
+            g.diff(da, "X", metric_weighted=["X"])
 
 
 def test_numpy_data_and_to_numpy_roundtrip():

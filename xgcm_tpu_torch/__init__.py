@@ -1,9 +1,11 @@
 """xgcm_tpu_torch: the PyTorch and CUDA port of xgcm_tpu, for NVIDIA Hopper.
 
 Finite-volume analysis of staggered (Arakawa) grid datasets: position-aware
-``interp``/``diff``/``min``/``max`` on scalars and vector components, on
-face-less and face-connected grids (cubed sphere, LLC; see :mod:`.grids`),
-and the linear, log and conservative vertical transforms, on torch tensors.  On a CUDA tensor the hot paths run
+``interp``/``diff``/``min``/``max``/``cumsum`` on scalars and vector
+components, on face-less and face-connected grids (MITgcm, NEMO, MOM6,
+cubed sphere, LLC; see :mod:`.grids`), the metric-weighted calculus
+(``derivative``, ``integrate``, ``average``, ``cumint``), and the linear,
+log and conservative vertical transforms, on torch tensors.  On a CUDA tensor the hot paths run
 hand-written CUDA kernels (``csrc/``); on a CPU tensor they run the kernels'
 plain PyTorch versions.  Host data that enters the package goes to the CUDA
 card unless the caller asks for the CPU (:func:`set_default_device`).

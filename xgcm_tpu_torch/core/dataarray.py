@@ -335,6 +335,14 @@ class GriddedArray:
             out = fn(x.to(work), dim=axes, keepdim=keepdims)
         return GriddedArray(out.to(out_dtype), out_dims, name=self.name)
 
+    def cumsum(self, dim: str) -> "GriddedArray":
+        """Inclusive prefix sum along a named dimension, with the dtype and
+        the float sums of ``jnp.cumsum`` under x64 (see
+        :func:`xgcm_tpu_torch.ops.stencils.cumsum`)."""
+        from ..ops.stencils import cumsum
+
+        return self.with_data(cumsum(as_tensor(self.data), self.get_axis_num(dim)))
+
     def astype(self, dtype) -> "GriddedArray":
         return self.with_data(as_tensor(self.data).to(dtype))
 

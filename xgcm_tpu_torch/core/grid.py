@@ -1,18 +1,23 @@
 """The Grid: user-facing API over multiple staggered axes.
 
 The counterpart of :class:`xgcm_tpu.core.grid.Grid` on torch tensors:
-construction (with metadata auto-parsing and face connections), the 1D
-grid-ufunc dispatch with its fused shift fast paths (face-less and
-face-connected), ``interp``/``diff``/``min``/``max`` on scalars and vector
-components, ``diff_2d_vector``/``interp_2d_vector``, and
-``transform``/``transform_multi``.  Metrics, cumsum, the metric-weighted
-calculus and the xarray bridge are not ported yet; asking for them raises
-``NotImplementedError`` (ROADMAP Queue 1).
+construction (with metadata auto-parsing and face connections), the metric
+registry with its find-or-derive resolution, the 1D grid-ufunc dispatch
+with its fused shift fast paths (face-less and face-connected),
+``interp``/``diff``/``min``/``max`` on scalars and vector components,
+``cumsum``, the metric-weighted calculus (``derivative``, ``integrate``,
+``cumint``, ``average`` and ``metric_weighted=``),
+``diff_2d_vector``/``interp_2d_vector``, and ``transform``/
+``transform_multi``.  The xarray bridge is not ported yet (ROADMAP Queue 1,
+item 1): inputs are GriddedArrays.
 """
 
 from __future__ import annotations
 
+import functools
 import inspect
+import itertools
+import operator
 import warnings
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Union
@@ -22,7 +27,7 @@ import torch
 
 from . import gridops
 from .axis import Axis
-from .dataarray import GriddedArray
+from .dataarray import GriddedArray, _broadcast_align, _expand_to
 from .dataset import Dataset
 from .grid_ufunc import (
     GridUFunc,
@@ -31,6 +36,8 @@ from .grid_ufunc import (
     _maybe_unpack_vector_component,
     apply_as_grid_ufunc,
 )
+from .metrics import iterate_axis_combinations
+from .padding import pad
 
 __all__ = ["Grid"]
 
@@ -63,7 +70,8 @@ class Grid:
         ``periodic``/``boundary``/``fill_value`` take scalars or per-axis
         dicts.  ``face_connections`` maps one face dim to the per-face
         links ``{face: {axis: (left, right)}}``, each link ``None`` or
-        ``(face, axis, reverse)``.  ``metrics`` is not ported yet.
+        ``(face, axis, reverse)``.  ``metrics`` maps axis tuples to the
+        names of metric variables in ``ds``.
         """
         if not isinstance(ds, Dataset):
             raise TypeError(
@@ -92,6 +100,8 @@ class Grid:
             ]
             if "coords" in parsed_kwargs and coords is None:
                 coords = parsed_kwargs["coords"]
+            if "metrics" in parsed_kwargs and metrics is None:
+                metrics = parsed_kwargs["metrics"]
             if duplicates:
                 raise ValueError(
                     f"Autoparsed Grid kwargs: '{', '.join(duplicates)}' conflict "
@@ -99,11 +109,6 @@ class Grid:
                     f"'autoparse_metadata=False', or autoparse and amend kwargs "
                     f"before calling Grid constructer."
                 )
-
-        if metrics is not None:
-            raise NotImplementedError(
-                "grid metrics are not ported yet (ROADMAP Queue 1, item 8)"
-            )
 
         if boundary:
             warnings.warn(
@@ -187,6 +192,13 @@ class Grid:
 
         if face_connections is not None:
             self._assign_face_connections(face_connections)
+
+        self._metrics: Dict[frozenset, List[GriddedArray]] = {}
+        # tensor copies of the registered metrics, by (id, device)
+        self._metric_tensors: Dict[Any, Any] = {}
+        if metrics is not None:
+            for key, value in metrics.items():
+                self.set_metrics(key, value)
 
     # ------------------------------------------------------------------ kwargs
     def _map_kwargs_over_axes(
@@ -279,6 +291,58 @@ class Grid:
             self.axes[axis]._facedim = facedim
             self.axes[axis]._face_connections = links
 
+    # ----------------------------------------------------------------- metrics
+    def set_metrics(self, key, value, overwrite=False):
+        """Register metric variables (names in the dataset) for a set of
+        axes; a variable with the dims of one already registered for these
+        axes replaces it only with ``overwrite=True``."""
+        metric_axes = frozenset(_maybe_promote_str_to_list(key))
+        not_found = [ma for ma in metric_axes if ma not in self.axes]
+        if not_found:
+            raise KeyError(
+                f"Metric axes {not_found!r} not compatible with grid axes "
+                f"{tuple(self.axes)!r}"
+            )
+
+        metric_values = _maybe_promote_str_to_list(value)
+        for name in metric_values:
+            if name not in self._ds:
+                raise KeyError(f"Metric variable {name} not found in dataset.")
+
+        if metric_axes in self._metrics:
+            existing = self._metrics[metric_axes]
+            for name in metric_values:
+                new_var = self._ds[name]
+                did_overwrite = False
+                for idx, ve in enumerate(existing):
+                    if set(new_var.dims) == set(ve.dims):
+                        if overwrite:
+                            existing[idx] = new_var
+                            did_overwrite = True
+                        else:
+                            raise ValueError(
+                                f"Metric variable {ve.name} with dimensions "
+                                f"{ve.dims} already assigned in metrics. "
+                                f"Overwrite {ve.name} with {name} by setting "
+                                f"overwrite=True."
+                            )
+                if not did_overwrite:
+                    existing.append(new_var)
+        else:
+            self._metrics[metric_axes] = [self._ds[name] for name in metric_values]
+
+    def _metric_on(self, var: GriddedArray, device) -> GriddedArray:
+        """A registered metric as a tensor on ``device``.  Dataset
+        coordinates are host arrays; each is copied to a device once and
+        kept, so no op copies a metric from the host again."""
+        key = (id(var), torch.device(device))
+        hit = self._metric_tensors.get(key)
+        if hit is None or hit[0] is not var:
+            hit = (var, GriddedArray(var.data, var.dims, name=var.name,
+                                     attrs=var.attrs, device=device))
+            self._metric_tensors[key] = hit
+        return hit[1]
+
     def _get_dims_from_axis(self, da, axis) -> List[str]:
         da = _maybe_unpack_vector_component(da)
         dims = []
@@ -293,6 +357,98 @@ class Grid:
                 )
             dims.append(matching[0])
         return dims
+
+    def get_metric(self, array: GriddedArray, axes) -> GriddedArray:
+        """Find or derive the metric for ``axes`` that broadcasts against
+        ``array``, as a tensor on ``array``'s device:
+
+        1. a metric registered for exactly these axes whose dims ``array``
+           has;
+        2. one registered for these axes at other positions, interpolated
+           to ``array``'s (``boundary="extend"``, with a warning);
+        3. the product of metrics of fewer axes whose dims ``array`` has;
+        4. that product, interpolated (with a warning).
+
+        Conditions 3 and 4 scan in two phases: every product is tried for
+        matching dims before any is interpolated.
+        """
+        metric_vars = None
+        array_dims = set(array.dims)
+        device = array.device
+
+        self._get_dims_from_axis(array, frozenset(axes))
+
+        possible_metric_keys = set(tuple(k) for k in self._metrics)
+        possible_combos = set(itertools.permutations(tuple(axes)))
+        overlap = possible_metric_keys & possible_combos
+
+        if overlap:
+            key = frozenset(*overlap)
+            mv = None
+            for mv in self._metrics[key]:
+                if set(mv.dims).issubset(array_dims):
+                    metric_vars = self._metric_on(mv, device)
+                    break
+            if metric_vars is None:
+                warnings.warn(
+                    f"Metric at {array.dims} being interpolated from metrics at "
+                    f"dimensions {mv.dims}. Boundary value set to 'extend'."
+                )
+                metric_vars = self.interp_like(
+                    self._metric_on(mv, device), array, "extend", None
+                )
+        else:
+            for axis_combinations in iterate_axis_combinations(axes):
+                try:
+                    possible_sets = [self._metrics[ac] for ac in axis_combinations]
+                    last_combo = None
+                    for combo in itertools.product(*possible_sets):
+                        last_combo = combo
+                        metric_dims = set(d for mv in combo for d in mv.dims)
+                        if metric_dims.issubset(array_dims):
+                            metric_vars = tuple(self._metric_on(mv, device) for mv in combo)
+                            break
+                    if metric_vars is None and last_combo is not None:
+                        possible_dims = [mv.dims for mv in last_combo]
+                        warnings.warn(
+                            f"Metric at {array.dims} being interpolated from "
+                            f"metrics at dimensions {possible_dims}. Boundary "
+                            f"value set to 'extend'."
+                        )
+                        metric_vars = tuple(
+                            self.interp_like(self._metric_on(mv, device), array,
+                                             "extend", None)
+                            for mv in last_combo
+                        )
+                    if metric_vars is not None:
+                        metric_vars = _metric_product(metric_vars, array)
+                        break
+                except KeyError:
+                    pass
+        if metric_vars is None:
+            raise KeyError(
+                f"Unable to find any combinations of metrics for array dims "
+                f"{array_dims!r} and axes {axes!r}"
+            )
+        return metric_vars
+
+    def interp_like(self, array, like, boundary=None, fill_value=None):
+        """Interpolate ``array`` to the grid positions of ``like`` along
+        every axis where they differ."""
+        interp_axes = []
+        for axname, axis in self.axes.items():
+            try:
+                pos_array, _ = axis._get_position_name(array)
+                pos_like, _ = axis._get_position_name(like)
+            except KeyError:
+                continue
+            if pos_like != pos_array:
+                interp_axes.append(axname)
+        if not interp_axes:
+            return array
+        return self.interp(
+            array, interp_axes, fill_value=fill_value, boundary=boundary
+        )
 
     def coords_for(self, array: GriddedArray) -> Dict[str, GriddedArray]:
         """Coordinate variables from the grid dataset whose dims all appear
@@ -324,17 +480,19 @@ class Grid:
         **kwargs,
     ):
         """Select and apply the right 1D grid ufunc per axis, sequentially;
-        the fused shift path serves what it can."""
-        if metric_weighted:
-            raise NotImplementedError(
-                "metric-weighted ops are not ported yet (ROADMAP Queue 1, item 8)"
-            )
+        the fused shift path serves what it can.  ``metric_weighted`` (axes,
+        or a per-axis dict of axes) multiplies by that metric before each
+        axis's op and divides by the metric at the result's position
+        after it."""
         if isinstance(axis, str):
             axis = [axis]
 
         data = _check_data_input(data, self)
         data_unpacked = _maybe_unpack_vector_component(data)
         to = self._map_kwargs_over_axes(to)
+        if isinstance(metric_weighted, str):
+            metric_weighted = (metric_weighted,)
+        metric_weighted = self._map_kwargs_over_axes(metric_weighted)
         signatures = self._create_1d_grid_ufunc_signatures(
             data_unpacked, axis=axis, to=to
         )
@@ -344,6 +502,10 @@ class Grid:
             grid_ufunc, remaining_kwargs = _select_grid_ufunc(
                 funcname, signature_1d, module=gridops, **kwargs
             )
+            ax_metric_weighted = metric_weighted.get(ax_name)
+            if ax_metric_weighted:
+                array = array * self.get_metric(array, ax_metric_weighted)
+
             fused = self._maybe_fused_1d_op(
                 funcname, array, ax_name, signature_1d, remaining_kwargs,
                 other_component=other_component,
@@ -359,6 +521,9 @@ class Grid:
                     other_component=other_component,
                     **remaining_kwargs,
                 )
+
+            if ax_metric_weighted:
+                array = array / self.get_metric(array, ax_metric_weighted)
         return array
 
     def _maybe_fused_1d_op(
@@ -603,6 +768,82 @@ class Grid:
         """Maximum of neighbouring points."""
         return self._1d_grid_ufunc_dispatch("max", da, axis, **kwargs)
 
+    def cumsum(
+        self,
+        da: GriddedArray,
+        axis,
+        to=None,
+        boundary=None,
+        fill_value=None,
+        metric_weighted=None,
+        keep_coords: bool = False,
+    ) -> GriddedArray:
+        """Cumulative sum along each axis in turn, onto the position ``to``
+        (by default the axis's default shift): the prefix sum, then the
+        position pair's trim and pad (through the face-connection halos on
+        a face-connected grid).  ``keep_coords`` is accepted for API parity
+        and ignored."""
+        if isinstance(axis, str):
+            axis = [axis]
+        to = self._map_kwargs_over_axes(to)
+        if isinstance(metric_weighted, str):
+            metric_weighted = (metric_weighted,)
+        metric_weighted = self._map_kwargs_over_axes(metric_weighted)
+
+        data = da
+        for ax_name in axis:
+            # the typed unknown-axis and missing-dim errors
+            self._get_dims_from_axis(data, ax_name)
+            ax = self.axes[ax_name]
+            pos, dim = ax._get_position_name(data)
+
+            ax_metric_weighted = metric_weighted.get(ax_name)
+            if ax_metric_weighted:
+                data = data * self.get_metric(data, ax_metric_weighted)
+
+            data = data.cumsum(dim)
+
+            ax_to = to.get(ax_name)
+            if ax_to is None:
+                ax_to = ax.default_shifts[pos]
+
+            if (pos == "center" and ax_to == "right") or (
+                pos == "left" and ax_to == "center"
+            ):
+                bw = {ax_name: (0, 0)}
+            elif (pos == "center" and ax_to == "left") or (
+                pos == "right" and ax_to == "center"
+            ):
+                data = data.isel({dim: slice(0, -1)})
+                bw = {ax_name: (1, 0)}
+            elif (pos == "center" and ax_to == "inner") or (
+                pos == "outer" and ax_to == "center"
+            ):
+                data = data.isel({dim: slice(0, -1)})
+                bw = {ax_name: (0, 0)}
+            elif (pos == "center" and ax_to == "outer") or (
+                pos == "inner" and ax_to == "center"
+            ):
+                bw = {ax_name: (1, 0)}
+            else:
+                raise ValueError(
+                    f"From `{pos}` to `{ax_to}` is not a valid position "
+                    f"shift for cumsum operation along axis {ax}."
+                )
+
+            padded = pad(
+                data=data,
+                grid=self,
+                boundary_width=bw,
+                boundary=boundary,
+                fill_value=fill_value,
+            )
+            data = padded.rename_dims({dim: ax.coords[ax_to]})
+
+            if ax_metric_weighted:
+                data = data / self.get_metric(data, ax_metric_weighted)
+        return data
+
     # ----------------------------------------------------------- vector ops
     def _apply_vector_function(self, function, vector, **kwargs):
         """Apply ``function`` to each component of a 2D C-grid vector along
@@ -658,6 +899,44 @@ class Grid:
         centres, each component along its own axis."""
         return self._apply_vector_function(self.interp, vector, **kwargs)
 
+    # ----------------------------------------------- metric-weighted calculus
+    def derivative(self, da, axis, **kwargs):
+        """``diff`` along ``axis`` divided by the axis's metric at the
+        result's position."""
+        diff = self.diff(da, axis, **kwargs)
+        return diff / self.get_metric(diff, (axis,))
+
+    def integrate(self, da, axis, **kwargs):
+        """The sum of ``da`` times the metric of ``axis`` over the axes'
+        dims.  NaN in floating data is skipped (taken as 0; as in
+        ``jnp.nan_to_num``, infinities become the largest finite values).
+        Keywords go to :meth:`GriddedArray.sum`."""
+        weighted = da * self.get_metric(da, axis)
+        dim = self._get_dims_from_axis(da, axis)
+        if weighted.dtype.is_floating_point:
+            weighted = weighted.with_data(torch.nan_to_num(weighted.data, nan=0.0))
+        return weighted.sum(dim, **kwargs)
+
+    def cumint(self, da, axis, **kwargs):
+        """:meth:`cumsum` of ``da`` times the metric of ``axis``."""
+        return self.cumsum(da * self.get_metric(da, axis), axis, **kwargs)
+
+    def average(self, da, axis, **kwargs):
+        """The metric-weighted mean over the axes' dims, NaN cells left out
+        of both sums (xarray's ``weighted.mean``).  Keywords go to
+        :meth:`GriddedArray.sum`."""
+        weight = self.get_metric(da, axis)
+        dims = self._get_dims_from_axis(da, axis)
+        x, w, out_dims = _broadcast_align(da, weight)
+        if not w.is_floating_point():
+            w = w.to(torch.float64)
+        if not x.is_floating_point():
+            x = x.to(w.dtype)  # the weakly typed 0.0 that JAX fills with
+        nan_mask = torch.isnan(x)
+        num = GriddedArray(torch.where(nan_mask, 0.0, x) * w, out_dims, name=da.name)
+        den = GriddedArray(torch.where(nan_mask, 0.0, w), out_dims, name=da.name)
+        return num.sum(dims, **kwargs) / den.sum(dims, **kwargs)
+
     def transform(self, da, axis, target, **kwargs):
         """Convert ``da`` to new 1D coordinates along ``axis``.
 
@@ -687,6 +966,22 @@ class Grid:
         from ..ops.transform import transform_multi
 
         return transform_multi(self, axis, das, target, **kwargs)
+
+
+def _metric_product(factors, array) -> GriddedArray:
+    """``1 * f0 * f1 * ...`` with the values, dtype and dims of that
+    product of GriddedArrays, laid out in memory in ``array``'s dim order.
+    The dims follow the factors' order, which follows the iteration order
+    of frozensets of axis names and so changes from process to process;
+    a product laid out in that order would cost every op that broadcasts
+    it against ``array`` a transposing copy."""
+    dims: tuple = ()
+    for f in factors:
+        dims += tuple(d for d in f.dims if d not in dims)
+    order = [d for d in array.dims if d in dims] + [d for d in dims if d not in array.dims]
+    data = functools.reduce(operator.mul, (_expand_to(f, order) for f in factors), 1)
+    return GriddedArray(data.permute([order.index(d) for d in dims]), dims,
+                        name=factors[0].name)
 
 
 def _select_grid_ufunc(funcname, signature: GridUFuncSignature, module, **kwargs):

@@ -7,7 +7,7 @@ The counterpart of :mod:`xgcm_tpu.core.grid_ufunc` on torch tensors:
 
 It serves every position pair and dtype the fused shift path does not
 (inner/outer pairs, integer and bool inputs, custom kernels).  The xarray
-bridge is not ported yet (ROADMAP Queue 1, item 11): inputs must be
+bridge is not ported yet (ROADMAP Queue 1, item 1): inputs must be
 :class:`GriddedArray` or single-entry vector-component dicts of them.
 """
 

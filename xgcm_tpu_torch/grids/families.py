@@ -1,15 +1,20 @@
-"""Grid constructors for the model families whose grids need no metrics.
+"""Grid constructors for the major model families.
 
 The port's counterparts of :mod:`xgcm_tpu.grids.families`:
 
+* **MITgcm** (C-grid): velocity points sit at the *left* (western/southern)
+  cell edges; dims XC/XG, YC/YG; X periodic for global runs.
+* **NEMO** (C-grid): velocity points sit at the *right* (eastern/northern)
+  edges (NEMO's U/V points are at i+1/2); vertical W on the left (above T).
 * **MOM6 symmetric mode**: corner/edge arrays carry one extra point —
   ``outer`` positions relative to the tracer cells.
 * **Cubed sphere**: six square faces with the standard connection table.
 * **LLC** (MITgcm lat-lon-cap): thirteen faces, the topology of the
   LLC4320 simulation.
 
-Each factory returns ``(ds, grid)``.  The MITgcm and NEMO C-grid factories
-pass metrics and wait for the metrics port (ROADMAP Queue 1, item 8).
+Each factory returns ``(ds, grid)``; the C-grid datasets carry spherical
+metric coordinates, registered with the grid, so the metric-weighted ops
+work out of the box.
 """
 
 from __future__ import annotations
@@ -27,8 +32,13 @@ __all__ = [
     "LLC_CONNECTIONS",
     "cubed_sphere_grid",
     "llc_grid",
+    "mitgcm_c_grid",
     "mom6_symmetric_grid",
+    "nemo_c_grid",
 ]
+
+_R_EARTH = 6.371e6
+_DEG = np.pi / 180.0
 
 
 def _quiet_grid(*args, **kwargs) -> Grid:
@@ -44,14 +54,103 @@ def _latlon(nx: int, ny: int):
     dlon = 360.0 / nx
     dlat = 160.0 / ny
     lon_c = (np.arange(nx) + 0.5) * dlon
+    lon_g = np.arange(nx) * dlon
     lat_c = -80.0 + (np.arange(ny) + 0.5) * dlat
-    return lon_c, lat_c, dlon, dlat
+    lat_g = -80.0 + np.arange(ny) * dlat
+    return lon_c, lon_g, lat_c, lat_g, dlon, dlat
+
+
+def mitgcm_c_grid(
+    nx: int = 90, ny: int = 40, nz: int = 15
+) -> Tuple[Dataset, Grid]:
+    """Global MITgcm-style C-grid: left-staggered, X periodic, full metric
+    set (dxC/dyC/rA/drF)."""
+    lon_c, lon_g, lat_c, lat_g, dlon, dlat = _latlon(nx, ny)
+    z_c = -(np.arange(nz) + 0.5) * 50.0
+    z_f = -np.arange(nz + 1) * 50.0
+
+    dx_c = (_R_EARTH * _DEG * dlon * np.cos(lat_c * _DEG)).astype(np.float64)
+    dy_c = np.full(ny, _R_EARTH * _DEG * dlat)
+    ra = dx_c[:, None] * dy_c[:, None] * np.ones((ny, nx))
+    drf = np.full(nz, 50.0)
+
+    ds = Dataset(
+        coords={
+            "XC": ("XC", lon_c, {"axis": "X"}),
+            "XG": ("XG", lon_g, {"axis": "X", "c_grid_axis_shift": -0.5}),
+            "YC": ("YC", lat_c, {"axis": "Y"}),
+            "YG": ("YG", lat_g, {"axis": "Y", "c_grid_axis_shift": -0.5}),
+            "Z": ("Z", z_c, {"axis": "Z"}),
+            "Zl": ("Zl", z_f[:-1], {"axis": "Z", "c_grid_axis_shift": -0.5}),
+            "Zp1": ("Zp1", z_f, {"axis": "Z", "c_grid_axis_shift": -0.5}),
+            "dxC": (("YC",), dx_c),
+            "dyC": (("YC",), dy_c),
+            "rA": (("YC", "XC"), ra),
+            "drF": (("Z",), drf),
+        }
+    )
+    grid = _quiet_grid(
+        ds,
+        coords={
+            "X": {"center": "XC", "left": "XG"},
+            "Y": {"center": "YC", "left": "YG"},
+            "Z": {"center": "Z", "left": "Zl", "outer": "Zp1"},
+        },
+        boundary={"X": "periodic", "Y": "extend", "Z": "extend"},
+        metrics={
+            ("X",): ["dxC"],
+            ("Y",): ["dyC"],
+            ("X", "Y"): ["rA"],
+            ("Z",): ["drF"],
+        },
+        autoparse_metadata=False,
+    )
+    return ds, grid
+
+
+def nemo_c_grid(nx: int = 90, ny: int = 40, nz: int = 15) -> Tuple[Dataset, Grid]:
+    """NEMO-style C-grid: U/V at the right (i+1/2) edges, W above T."""
+    lon_c, _, lat_c, _, dlon, dlat = _latlon(nx, ny)
+    lon_u = lon_c + dlon / 2
+    lat_v = lat_c + dlat / 2
+    z_c = (np.arange(nz) + 0.5) * 50.0
+    z_w = np.arange(nz) * 50.0
+
+    e1t = (_R_EARTH * _DEG * dlon * np.cos(lat_c * _DEG)).astype(np.float64)
+    e2t = np.full(ny, _R_EARTH * _DEG * dlat)
+    e3t = np.full(nz, 50.0)
+
+    ds = Dataset(
+        coords={
+            "x_c": ("x_c", lon_c, {"axis": "X"}),
+            "x_r": ("x_r", lon_u, {"axis": "X", "c_grid_axis_shift": 0.5}),
+            "y_c": ("y_c", lat_c, {"axis": "Y"}),
+            "y_r": ("y_r", lat_v, {"axis": "Y", "c_grid_axis_shift": 0.5}),
+            "z_c": ("z_c", z_c, {"axis": "Z"}),
+            "z_l": ("z_l", z_w, {"axis": "Z", "c_grid_axis_shift": -0.5}),
+            "e1t": (("y_c",), e1t),  # zonal spacing varies with latitude
+            "e2t": (("y_c",), e2t),
+            "e3t": (("z_c",), e3t),
+        }
+    )
+    grid = _quiet_grid(
+        ds,
+        coords={
+            "X": {"center": "x_c", "right": "x_r"},
+            "Y": {"center": "y_c", "right": "y_r"},
+            "Z": {"center": "z_c", "left": "z_l"},
+        },
+        boundary={"X": "periodic", "Y": "extend", "Z": "extend"},
+        metrics={("X",): ["e1t"], ("Y",): ["e2t"], ("Z",): ["e3t"]},
+        autoparse_metadata=False,
+    )
+    return ds, grid
 
 
 def mom6_symmetric_grid(nx: int = 90, ny: int = 40) -> Tuple[Dataset, Grid]:
     """MOM6 symmetric-mode grid: corner (q) points are ``outer`` — one more
     point than the tracer cells along each axis."""
-    lon_c, lat_c, dlon, dlat = _latlon(nx, ny)
+    lon_c, _, lat_c, _, dlon, dlat = _latlon(nx, ny)
     lon_q = np.concatenate([[lon_c[0] - dlon], lon_c]) + dlon / 2
     lat_q = np.concatenate([[lat_c[0] - dlat], lat_c]) + dlat / 2
 

@@ -8,11 +8,16 @@ order so results stay bitwise equal to the JAX package.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = [
     "PAIR_OPS",
     "apply_pair",
+    "cumsum",
+    "cumsum_full",
+    "cumsum_trim_last",
     "diff_forward",
     "interp_forward",
     "pairwise_min",
@@ -67,3 +72,78 @@ def pairwise_min(a):
 def pairwise_max(a):
     """Maximum of adjacent points."""
     return PAIR_OPS["max"](a[..., :-1], a[..., 1:])
+
+
+# -- cumsum -----------------------------------------------------------------
+# ``jnp.cumsum`` is a reduce-window that XLA rewrites into a blocked scan: a
+# running sum within blocks of 16, the block totals scanned the same way,
+# and each block's result added to the scan of the totals before it.  Float
+# sums here take that order, so they equal the JAX package's bit for bit,
+# on the card as on the CPU.
+_SCAN_BLOCK = 16
+# integer dtypes whose cumsum torch implements on no device: they wrap
+# modulo 2^bits, so an int64 cumsum cast back gives the same result
+_UNSIGNED_WIDE = (torch.uint16, torch.uint32, torch.uint64)
+
+
+def cumsum(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Inclusive prefix sum along ``axis`` with the dtype of ``jnp.cumsum``
+    under x64: bool gives int64, every other dtype keeps its own (torch
+    alone would widen the integers to int64)."""
+    axis = axis % x.ndim
+    if x.dtype == torch.bool:
+        return torch.cumsum(x, axis, dtype=torch.int64)
+    if x.dtype in _UNSIGNED_WIDE:
+        return torch.cumsum(x.to(torch.int64), axis).to(x.dtype)
+    if not (x.is_floating_point() or x.is_complex()):
+        return torch.cumsum(x, axis, dtype=x.dtype)
+    n = x.shape[axis]
+    if n <= 1:
+        # XLA drops a window of one (-0.0 stays -0.0), except in bfloat16,
+        # which it sums in float32 from zero
+        return x + 0.0 if x.dtype == torch.bfloat16 else x.clone()
+    pre = math.prod(x.shape[:axis])
+    post = math.prod(x.shape[axis + 1:])
+    if post >= 32 or pre == 1:
+        return _blocked_scan(x.reshape(pre, n, post)).reshape(x.shape)
+    # a scan along a short inner stride: move the axis to the front, so
+    # that each step of the running sum adds contiguous slabs
+    moved = x.movedim(axis, 0).contiguous()
+    out = _blocked_scan(moved.reshape(1, n, -1)).reshape(moved.shape)
+    return out.movedim(0, axis).contiguous()
+
+
+def _blocked_scan(v: torch.Tensor) -> torch.Tensor:
+    """The blocked scan of a (pre, n, post) float tensor along dim 1, as a
+    new contiguous tensor.  A last block shorter than the others is the
+    zero-padded block of XLA's rewrite: its running sum is the same."""
+    pre, n, post = v.shape
+    out = torch.empty((pre, n, post), dtype=v.dtype, device=v.device)
+    width = min(n, _SCAN_BLOCK)
+    nb = n // width
+    full = nb * width
+    vb = v[:, :full].reshape(pre, nb, width, post)
+    ob = out[:, :full].view(pre, nb, width, post)
+    torch.add(vb[:, :, 0], 0.0, out=ob[:, :, 0])  # from zero, as XLA: -0.0 + 0 = 0
+    for i in range(1, width):
+        torch.add(ob[:, :, i - 1], vb[:, :, i], out=ob[:, :, i])
+    if full < n:
+        torch.add(v[:, full], 0.0, out=out[:, full])
+        for i in range(full + 1, n):
+            torch.add(out[:, i - 1], v[:, i], out=out[:, i])
+    if nb > 1 or full < n:
+        # the scan of a block's total depends on the totals before it only
+        totals = _blocked_scan(ob[:, :, -1])  # (pre, nb, post)
+        ob[:, 1:] += totals[:, :-1, None]
+        out[:, full:] += totals[:, -1:]
+    return out
+
+
+def cumsum_full(a):
+    """Inclusive scan along the last axis."""
+    return cumsum(a, -1)
+
+
+def cumsum_trim_last(a):
+    """Inclusive scan along the last axis, dropping the final element."""
+    return cumsum(a, -1)[..., :-1]
