@@ -3,7 +3,7 @@
 
 Builds the eight hand-written CUDA kernels from ``xgcm_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes of the main
-paths, and drives five paths at the width of LLC4320 (4320 x 4320 columns a
+paths, and drives six paths at the width of LLC4320 (4320 x 4320 columns a
 face, 50 levels, float32):
 
 * the C-grid analysis step (``xgcm_tpu_torch.entry.step``, kernels A and C)
@@ -24,7 +24,15 @@ face, 50 levels, float32):
   (``grids.mitgcm_c_grid``: derivative, integrate, average, cumint, cumsum
   and ``metric_weighted=``, each with the launches of A its route implies),
   the identities of the calculus at full width, and both on a small grid
-  against the CPU.
+  against the CPU;
+* the xarray path at one face, in a process of its own: Grid(xr.Dataset)
+  of the repo's xarray stub (tests/fake_xarray.py), diff, derivative,
+  integrate and the linear and conservative transforms of one field and of
+  four from host numpy to host numpy, each against the native call on the
+  card (the same launches of A, C, G, F, H, the same values bit for bit,
+  xgcm's coordinates, the time and the profiler's split into copies,
+  kernels and idle); ``regrid_vertical`` at the face and against the CPU;
+  ``utils.device_time`` and ``utils.trace``.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; the script checks that every kernel of the path launched and that
@@ -54,11 +62,14 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
+import importlib.util
 import io
 import itertools
 import json
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -346,13 +357,15 @@ def check_shift(check, gen, dev):
         f"{len(SHIFT_64BIT)} bf16 views of more than 2^31 elements, aligned and misaligned")
 
 
-def profile_window(fn, reps):
-    """(``torch.profiler`` key averages, CUDA-event ms per call) of ``reps``
-    calls of fn after a warm-up.  fn and the synchronize raise as they do
-    outside the window; only a failure of the profiler itself is logged,
-    and gives None for the averages (the profiler is a measurement aid, not
-    a check)."""
-    fn()
+def profile_window(fn, reps, warmup=True, raw=False):
+    """(``torch.profiler`` key averages, or with ``raw`` its events, and
+    CUDA-event ms per call) of ``reps`` calls of fn, after a warm-up call
+    unless ``warmup`` is false.  fn and
+    the synchronize raise as they do outside the window; only a failure of
+    the profiler itself is logged, and gives None for the averages (the
+    profiler is a measurement aid, not a check)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     try:
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
@@ -378,7 +391,7 @@ def profile_window(fn, reps):
         return None, ms
     try:
         prof.stop()
-        return prof.key_averages(), ms
+        return (prof.events() if raw else prof.key_averages()), ms
     except Exception as exc:
         log(f"torch.profiler failed: {exc!r}")
         return None, ms
@@ -1136,9 +1149,10 @@ def check_finite(label, out):
     return finite / out.numel()
 
 
-def density_grid(xtt, nz=NZ):
-    """A Grid with one vertical axis: centres zc and bounds (outer) zo."""
-    ds = xtt.Dataset(coords={"zc": ("zc", np.arange(nz) + 0.5),
+def density_grid(xtt, nz=NZ, dataset=None):
+    """A Grid with one vertical axis: centres zc and bounds (outer) zo, built
+    from ``dataset`` (``xtt.Dataset`` by default, or ``xr.Dataset``)."""
+    ds = (dataset or xtt.Dataset)(coords={"zc": ("zc", np.arange(nz) + 0.5),
                              "zo": ("zo", np.arange(nz + 1.0))})
     return xtt.Grid(ds, coords={"Z": {"center": "zc", "outer": "zo"}}, periodic=False,
                     autoparse_metadata=False)
@@ -1377,11 +1391,12 @@ def check_face_small(gen, dev, xtt):
 METRIC_SMALL = (12, 40, 72)  # (nz, ny, nx) of the card-against-CPU check
 
 
-def budget_grid(xtt, nx, ny, nz, dtype=np.float32):
+def budget_grid(xtt, nx, ny, nz, dtype=np.float32, dataset=None):
     """The grid of ``build_grid`` in examples/tracer_budget.py: dx/dy/dz
     metrics at both positions of each axis, X and Y periodic, Z ``fill``
-    with 0; metrics in ``dtype`` (LLC4320's grid files are float32)."""
-    ds = xtt.Dataset(coords={
+    with 0; metrics in ``dtype`` (LLC4320's grid files are float32); built
+    from ``dataset`` (``xtt.Dataset`` by default, or ``xr.Dataset``)."""
+    ds = (dataset or xtt.Dataset)(coords={
         "xc": ("xc", np.arange(nx) + 0.5), "xg": ("xg", np.arange(nx) * 1.0),
         "yc": ("yc", np.arange(ny) + 0.5), "yg": ("yg", np.arange(ny) * 1.0),
         "zc": ("zc", np.arange(nz) + 0.5), "zg": ("zg", np.arange(nz) * 1.0),
@@ -1571,12 +1586,14 @@ def check_identities(grid, theta, ds):
 
 
 def kernel_class(name: str) -> str:
-    """The class of a profiler event: kernel A, elementwise, reduction,
-    copy or other."""
+    """The class of a profiler event: kernel A, elementwise, reduction, a
+    copy from or to the host, another copy, or other."""
     if any(k in name for k in SHIFT_KERNELS):
         return "kernel A"
     if "Memcpy HtoD" in name:
         return "Memcpy HtoD"
+    if "Memcpy DtoH" in name:
+        return "Memcpy DtoH"
     if "Memcpy" in name or "Memset" in name:
         return "copies"
     if "reduce_kernel" in name:
@@ -1696,10 +1713,423 @@ def metric_phase(xtt, build, gen, dev, card, nz=NZ, ny=NY, nx=NX):
 
 
 
+# ---- phase 10: the xarray path ------------------------------------------------
+XARRAY_SMALL = (12, 40, 72)  # (nz, ny, nx) of regrid_vertical's card-against-CPU check
+
+
+def load_xarray_stub():
+    """tests/fake_xarray.py, the repo's duck-typed stand-in for xarray,
+    loaded by its path."""
+    spec = importlib.util.spec_from_file_location("fake_xarray",
+                                                  ROOT / "tests" / "fake_xarray.py")
+    stub = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stub)
+    return stub
+
+
+@contextlib.contextmanager
+def xarray_stub():
+    """The stub installed as ``sys.modules["xarray"]`` and the port's
+    adapter reloaded to see it; both restored on leaving."""
+    from xgcm_tpu_torch.adapters import xarray_adapter as adapter
+
+    stub = load_xarray_stub()
+    old = sys.modules.get("xarray")
+    sys.modules["xarray"] = stub
+    try:
+        importlib.reload(adapter)
+        if not adapter.HAS_XARRAY:
+            raise AssertionError("the port's xarray adapter does not see the stub")
+        yield stub
+    finally:
+        if old is None:
+            sys.modules.pop("xarray", None)
+        else:
+            sys.modules["xarray"] = old
+        importlib.reload(adapter)
+
+
+def expected_coords(ds, inputs, out_dims, core_dims, keep=True, extra=None):
+    """The coordinates xgcm's rules give a result with dims ``out_dims``:
+    those of the grid's dataset ``ds`` whose dims are all in it, replaced by those of the
+    xarray ``inputs`` that lie entirely on dims outside ``core_dims`` (the
+    first input winning), then ``extra``; only the dimension coordinates
+    without ``keep``."""
+    want = {n: c.data for n, c in ds.coords.items() if all(d in out_dims for d in c.dims)}
+    for a in reversed(inputs):
+        for n, c in a.coords.items():
+            if all(d in out_dims and d not in core_dims for d in c.dims):
+                want[n] = c.data
+    want.update(extra or {})
+    return want if keep else {n: v for n, v in want.items() if n in out_dims}
+
+
+def same_as_native(host, native, dev, chunk=1 << 27):
+    """A host result equal to a tensor on the card, value for value with
+    NaN in the same places, compared on the card a chunk at a time."""
+    a, b = torch.from_numpy(host).reshape(-1), native.reshape(-1)
+    return a.dtype == b.dtype and a.numel() == b.numel() and all(
+        same_values(a[s:s + chunk].to(dev), b[s:s + chunk]) for s in range(0, a.numel(), chunk))
+
+
+def check_xr_output(label, xr, out, native, want, dev):
+    """An xarray result against the native call's: a stub DataArray of host
+    numpy, the same dims and values, and exactly the coordinates ``want``."""
+    if not isinstance(out, xr.DataArray) or not isinstance(out.data, np.ndarray):
+        raise AssertionError(f"{label}: {type(out)} is no xarray DataArray of host data")
+    if tuple(out.dims) != tuple(native.dims) or out.data.shape != tuple(native.shape):
+        raise AssertionError(f"{label}: {out.dims} {out.data.shape}, native {native.dims} "
+                             f"{tuple(native.shape)}")
+    if not same_as_native(out.data, native.data, dev):
+        raise AssertionError(f"{label}: values differ from the native call's")
+    if set(out.coords) != set(want):
+        raise AssertionError(f"{label}: coordinates {sorted(out.coords)}, expected "
+                             f"{sorted(want)}")
+    for name, values in want.items():
+        c = out.coords[name]
+        if not np.array_equal(np.asarray(c.data), np.asarray(values)) or any(
+                out.sizes[d] != s for d, s in zip(c.dims, np.shape(c.data))):
+            raise AssertionError(f"{label}: coordinate {name} is not the expected one")
+
+
+PCIE_BYTES_PER_S = 64e9  # PCIe 5.0 x16, one direction: no host copy is faster
+
+
+def device_split(events, wall, launched, in_bytes, out_bytes):
+    """{"Memcpy HtoD", "Memcpy DtoH", "kernels", "idle"} ms of the events of
+    one profiler window of ``wall`` ms of an xarray call, which copies
+    arrays of ``in_bytes`` to the card and of ``out_bytes`` back, and
+    launched kernels if ``launched``; None when the window holds fewer
+    copies as long as PCIe allows for those arrays, or no kernel (the
+    profiler on the H100 machine drops the device's records of some
+    windows)."""
+    split = {"Memcpy HtoD": 0.0, "Memcpy DtoH": 0.0, "kernels": 0.0}
+    least = {"Memcpy HtoD": min(in_bytes) / PCIE_BYTES_PER_S * 1e6,
+             "Memcpy DtoH": min(out_bytes) / PCIE_BYTES_PER_S * 1e6}  # us
+    copies = {"Memcpy HtoD": 0, "Memcpy DtoH": 0}
+    for e in events or ():
+        c = kernel_class(e.key)
+        split[c if c in split else "kernels"] += e.self_device_time_total / 1e3
+        if c in copies and e.self_device_time_total >= least[c]:
+            copies[c] += 1
+    if not (copies["Memcpy HtoD"] >= len(in_bytes) and copies["Memcpy DtoH"] >= len(out_bytes)
+            and (split["kernels"] > 0 or not launched)):
+        return None
+    split["idle"] = max(0.0, wall - sum(split.values()))
+    return split
+
+
+PROFILE_TRIES = 5  # profiler windows of an xarray call, for one with every record
+
+
+def xarray_against_native(label, xr, xr_call, native_call, want_coords, inputs, build, dev,
+                          card):
+    """One xarray call (host numpy in, host numpy out) against the native
+    call on tensors already on the card: the same launches of every
+    kernel, each output equal bit for bit with the coordinates
+    ``want_coords[i]``; the xarray call's time and device split from one
+    profiler window (up to PROFILE_TRIES windows, for one with all its
+    records), beside the native call's time by CUDA events.  ``inputs``
+    are the call's xarray inputs.  Returns the launches."""
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    box = []
+    events, xr_ms = profile_window(lambda: box.append(xr_call()), 1, warmup=False, raw=True)
+    xr_counts = build.launch_counts()
+    outs = box.pop()
+    build.reset_launch_counts()
+    natives = native_call()
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    if xr_counts != counts:
+        raise AssertionError(f"{label}: the xarray call launched {xr_counts}, the native "
+                             f"call {counts}")
+    outs = outs if isinstance(outs, list) else [outs]
+    natives = natives if isinstance(natives, list) else [natives]
+    nbytes = ([a.data.nbytes for a in inputs], [o.data.nbytes for o in outs])
+    for i, (o, n) in enumerate(zip(outs, natives)):
+        check_xr_output(f"{label} output {i}", xr, o, n, want_coords[i], dev)
+    del outs, natives
+    native_ms, _ = time_pair(native_call, reps=3)
+    launched = {k: v for k, v in counts.items() if v}
+    split, windows = device_split(events, xr_ms, launched, *nbytes), 1
+    while split is None and windows < PROFILE_TRIES:  # a window the profiler kept whole
+        events, ms = profile_window(xr_call, 1, warmup=False, raw=True)
+        split, windows = device_split(events, ms, launched, *nbytes), windows + 1
+    split_text = (f"split not measured: the profiler dropped device records in {windows} "
+                  f"windows" if split is None else ", ".join(
+                      f"{k} {v:.4f} ms" for k, v in split.items())
+                  + ("" if windows == 1 else f" (window {windows}: {ms:.4f} ms)"))
+    log(f"phase 10: {label}: xarray call {xr_ms:.4f} ms (CUDA events, host numpy to host "
+        f"numpy; {split_text}) against the native call {native_ms:.4f} ms (tensors on the "
+        f"card); launches {launched or 'none'} in both; values bit for bit; coordinates by "
+        f"xgcm's rules [{card}]")
+    return counts
+
+
+def xarray_budget_calls(xtt, xr, gen, dev, build, card, nz, ny, nx):
+    """The face-less calls through Grid(xr.Dataset) of the budget grid:
+    the vorticity of 2-D u, v (A twice), a 3-D diff (A once), derivative
+    and integrate along Z with the grid's metrics."""
+    grid = budget_grid(xtt, nx, ny, nz, dataset=xr.Dataset)
+    xds = grid._ds  # the grid's coordinates, as converted from the xr.Dataset
+    lat = np.linspace(-30.0, 30.0, ny)  # the inputs' own coordinates
+    lon = np.linspace(0.0, 90.0, nx)
+    u = torch.randn((ny, nx), generator=gen, device=dev)
+    v = torch.randn((ny, nx), generator=gen, device=dev)
+    ux = xr.DataArray(u.cpu().numpy(), dims=("yc", "xg"), name="u")
+    vx = xr.DataArray(v.cpu().numpy(), dims=("yg", "xc"), name="v")
+    un = xtt.GriddedArray(u, ("yc", "xg"), name="u")
+    vn = xtt.GriddedArray(v, ("yg", "xc"), name="v")
+    counts = {}
+    counts["vorticity"] = xarray_against_native(
+        f"vorticity diff(v, X) - diff(u, Y) {ny}x{nx} f32", xr,
+        lambda: grid.diff(vx, "X") - grid.diff(ux, "Y"),
+        lambda: grid.diff(vn, "X") - grid.diff(un, "Y"),
+        [expected_coords(xds, [], ("yg", "xg"), {"yg", "xg"}, keep=False)], [ux, vx], build, dev,
+        card)
+    del u, v, ux, vx, un, vn
+
+    theta = torch.rand((nz, ny, nx), generator=gen, device=dev).add_(20.0)
+    tx = xr.DataArray(theta.cpu().numpy(), dims=("zc", "yc", "xc"), name="theta",
+                      coords={"yc": ("yc", lat), "xc": ("xc", lon)})
+    tn = xtt.GriddedArray(theta, ("zc", "yc", "xc"), name="theta")
+    shape = f"{nz}x{ny}x{nx} f32"
+    counts["diff"] = xarray_against_native(
+        f"diff(theta, X) {shape}", xr, lambda: grid.diff(tx, "X"), lambda: grid.diff(tn, "X"),
+        [expected_coords(xds, [tx], ("zc", "yc", "xg"), {"xg"}, keep=False)], [tx], build, dev,
+        card)
+    counts["derivative"] = xarray_against_native(
+        f"derivative(theta, Z) {shape}", xr, lambda: grid.derivative(tx, "Z"),
+        lambda: grid.derivative(tn, "Z"),
+        [expected_coords(xds, [tx], ("zg", "yc", "xc"), {"zg"}, keep=False)], [tx], build, dev,
+        card)
+    counts["integrate"] = xarray_against_native(
+        f"integrate(theta, Z) {shape}", xr, lambda: grid.integrate(tx, "Z"),
+        lambda: grid.integrate(tn, "Z"), [expected_coords(xds, [tx], ("yc", "xc"), set())],
+        [tx], build, dev, card)
+    want = {"vorticity": 2, "diff": 1, "derivative": 1, "integrate": 0}
+    for name, n in want.items():
+        if counts[name]["shift"] != n or sum(counts[name].values()) != n:
+            raise AssertionError(f"the xarray {name} launched {counts[name]}, expected {n} of A")
+
+
+def xarray_density_calls(xtt, xr, gen, dev, build, card, nz, ny, nx):
+    """The density-space calls through Grid(xr.Dataset): linear and
+    conservative ``transform`` of one field (C, G) and ``transform_multi``
+    of four (F, H), each once, float32 targets as the native calls take.
+    Returns T, sigma and the levels on the card, for regrid_vertical."""
+    grid = density_grid(xtt, nz, dataset=xr.Dataset)
+    xds = grid._ds
+    sig_b, sig_c, fields = density_columns(gen, dev, ny * nx, n=nz)
+    sig_b, sig_c = sig_b.reshape(ny, nx, nz + 1), sig_c.reshape(ny, nx, nz)
+    fields = [f.reshape(ny, nx, nz) for f in fields]
+    edges, levels = density_targets(dev)
+    edges_h, levels_h = edges.cpu().numpy(), levels.cpu().numpy()
+    lat, lon = np.linspace(-30.0, 30.0, ny), np.linspace(0.0, 90.0, nx)
+    names = ("T", "S", "u", "v")
+    fx = [xr.DataArray(f.cpu().numpy(), dims=("y", "x", "zc"), name=nm,
+                       coords={"y": ("y", lat)}) for f, nm in zip(fields, names)]
+    # target_data's own coordinates: x survives, y loses to the field's
+    sbx = xr.DataArray(sig_b.cpu().numpy(), dims=("y", "x", "zo"), name="sigma",
+                       coords={"x": ("x", lon), "y": ("y", -lat)})
+    scx = xr.DataArray(sig_c.cpu().numpy(), dims=("y", "x", "zc"), name="sigma",
+                       coords={"x": ("x", lon), "y": ("y", -lat)})
+    fn = [xtt.GriddedArray(f, ("y", "x", "zc"), name=nm) for f, nm in zip(fields, names)]
+    sbn = xtt.GriddedArray(sig_b, ("y", "x", "zo"), name="sigma")
+    scn = xtt.GriddedArray(sig_c, ("y", "x", "zc"), name="sigma")
+    mid = 0.5 * (edges_h[:-1] + edges_h[1:])
+    out_dims = ("y", "x", "sigma")
+
+    def want(v, td, extra):
+        return expected_coords(xds, [fx[v], td], out_dims, {"sigma"}, extra={"sigma": extra})
+
+    shape = f"{ny}x{nx}x{nz} f32"
+    calls = {
+        "interp_linear": (
+            f"linear transform of T {shape}, {len(levels_h)} levels",
+            lambda: grid.transform(fx[0], "Z", levels_h, target_data=scx),
+            lambda: grid.transform(fn[0], "Z", levels, target_data=scn),
+            [want(0, scx, levels_h)], [fx[0], scx]),
+        "conservative": (
+            f"conservative transform of T {shape}, {len(mid)} classes",
+            lambda: grid.transform(fx[0], "Z", edges_h, target_data=sbx, method="conservative"),
+            lambda: grid.transform(fn[0], "Z", edges, target_data=sbn, method="conservative"),
+            [want(0, sbx, mid)], [fx[0], sbx]),
+        "interp_linear_multi": (
+            f"linear transform_multi of T, S, u, v {shape}",
+            lambda: grid.transform_multi(fx, "Z", levels_h, target_data=scx),
+            lambda: grid.transform_multi(fn, "Z", levels, target_data=scn),
+            [want(v, scx, levels_h) for v in range(len(fx))], fx + [scx]),
+        "conservative_multi": (
+            f"conservative transform_multi of T, S, u, v {shape}",
+            lambda: grid.transform_multi(fx, "Z", edges_h, target_data=sbx, method="conservative"),
+            lambda: grid.transform_multi(fn, "Z", edges, target_data=sbn, method="conservative"),
+            [want(v, sbx, mid) for v in range(len(fx))], fx + [sbx]),
+    }
+    for kernel, (label, xr_call, native_call, coords, inputs) in calls.items():
+        counts = xarray_against_native(label, xr, xr_call, native_call, coords, inputs, build,
+                                       dev, card)
+        if counts[kernel] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"the xarray {label} launched {counts}, expected {kernel} once")
+    return fields[0], sig_c, levels
+
+
+def check_regrid(xtt, q, tr, levels, dev, card):
+    """``regrid_vertical`` of q by the tracer tr into the bins between
+    ``levels`` at full width: per column with finite q the bins sum to the
+    column within n * 2**-24 * sum |q|; its peak device memory, well below
+    the one-hot (..., nz, nbins) array it does not build."""
+    from xgcm_tpu_torch.ops.regridding import regrid_vertical
+
+    ny, nx, nz = q.shape
+    nbins = levels.numel() - 1
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = regrid_vertical(xtt.GriddedArray(q, ("y", "x", "zc"), name="T"),
+                          xtt.GriddedArray(tr, ("y", "x", "zc"), name="sigma"), levels, "zc")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    if out.dims != ("y", "x", "sigma_coord") or out.shape != (ny, nx, nbins):
+        raise AssertionError(f"regrid_vertical: {out.dims} {out.shape}")
+    checked = 0
+    for o, a in rows(out.data, q):
+        finite = torch.isfinite(a).all(-1)
+        err = (o.double().sum(-1) - a.double().sum(-1)).abs()
+        tol = nz * 2.0**-24 * a.double().abs().sum(-1)
+        if not bool((err <= tol)[finite].all()):
+            raise AssertionError("regrid_vertical: a column's bins do not sum to its total")
+        checked += int(finite.sum())
+    one_hot_gb = q.numel() * nbins * q.element_size() / 1e9
+    log(f"phase 10: regrid_vertical {ny}x{nx}x{nz} f32 into {nbins} bins: {ms:.1f} ms (host "
+        f"clock, first call); peak device memory {peak:.2f} GB above its inputs (the one-hot "
+        f"(..., nz, nbins) array would take {one_hot_gb:.1f} GB); bins sum to the column in "
+        f"{checked} columns with finite data [{card}]")
+    del out
+
+
+def check_regrid_small(xtt, q, tr, levels, dev):
+    """``regrid_vertical`` on a 12 x 40 x 72 cut of the face, NaN and +-inf
+    tracer values and a NaN datum among them: the card equals the CPU."""
+    from xgcm_tpu_torch.ops.regridding import regrid_vertical
+
+    nz, ny, nx = XARRAY_SMALL
+    qs, ts = q[:ny, :nx, :nz].clone(), tr[:ny, :nx, :nz].clone()
+    ts[0, 0, :6] = torch.tensor([float("nan"), -float("inf"), float("inf"), 24.5, 26.6, 23.0],
+                                device=ts.device)
+    ts[5, 7, 3], ts[9, 2, 11] = float("nan"), float("inf")
+    qs[1, 1, 3] = float("nan")
+
+    def run(d):
+        return regrid_vertical(xtt.GriddedArray(qs.to(d), ("y", "x", "zc"), name="T"),
+                               xtt.GriddedArray(ts.to(d), ("y", "x", "zc"), name="sigma"),
+                               levels.to(d), "zc")
+
+    a, b = run(dev), run(torch.device("cpu"))
+    if a.dims != b.dims or a.data.device.type != dev.type or not same_values(a.data.cpu(),
+                                                                            b.data):
+        raise AssertionError("regrid_vertical on the card differs from the CPU")
+    log(f"phase 10: regrid_vertical on a {nz} x {ny} x {nx} cut with NaN and +-inf tracer "
+        f"values on the card == on the CPU, value for value")
+
+
+def check_profiling(xtt, gen, dev, card, shift_ms):
+    """``utils.device_time`` of A's 4320^2 diff beside phase 5's events time,
+    and ``utils.trace`` writing a trace that names A's kernel."""
+    from xgcm_tpu_torch.ops.kernels.shift import shift
+    from xgcm_tpu_torch.utils import device_time, trace
+
+    x = torch.rand((NY, NX), generator=gen, device=dev)
+    secs = device_time(lambda a: shift(a, 1, "diff", "left", "periodic"), x, iters=30)
+    phase5 = "not measured" if shift_ms is None else f"{shift_ms:.4f} ms"
+    log(f"phase 10: utils.device_time of A's diff/left/axis1 {NY}x{NX} f32: {secs * 1e3:.4f} ms "
+        f"an iteration, beside phase 5's events time {phase5} (slowest of four "
+        f"configurations): device_time adds the chaining pass, x + 1e-20 * out, a multiply "
+        f"and an add over x [{card}]")
+    logdir = ROOT / "build" / "xgcm_tpu_torch_trace"
+    for attempt in range(1, PROFILE_TRIES + 1):
+        shutil.rmtree(logdir, ignore_errors=True)
+        with trace(str(logdir)):
+            y = torch.rand((NY, NX), generator=gen, device=dev)
+            shift(y, 1, "diff", "left", "periodic")
+        files = list(logdir.iterdir())
+        if len(files) != 1:
+            raise AssertionError(f"utils.trace wrote {files}, not one trace file")
+        if any(k in files[0].read_text() for k in SHIFT_KERNELS):
+            break
+    else:
+        raise AssertionError(f"utils.trace wrote no trace that names kernel A in "
+                             f"{PROFILE_TRIES} tries")
+    log(f"phase 10: utils.trace wrote {files[0].name} ({files[0].stat().st_size} bytes), which "
+        f"names kernel A (try {attempt} of {PROFILE_TRIES}; the profiler on the H100 machine "
+        f"drops the device's records of some windows)")
+
+
+def run_xarray_phase(seed, shift_ms):
+    """Phase 10 in a process of its own, which this one waits for: late in
+    a long process torch.profiler dropped the device's records of whole
+    windows (on the H100 machine, after about 100 s), and the phase's split
+    and ``utils.trace`` read them.  Fails when the phase fails."""
+    cmd = [sys.executable, str(pathlib.Path(__file__).resolve()), "--xarray-phase",
+           "--seed", str(seed)]
+    if shift_ms is not None:
+        cmd += ["--shift-ms", repr(shift_ms)]
+    sys.stdout.flush()
+    rc = subprocess.run(cmd, timeout=900).returncode
+    if rc != 0:
+        raise AssertionError(f"phase 10 failed (exit code {rc})")
+
+
+def xarray_phase_main(seed, shift_ms) -> int:
+    """The entry of the process run_xarray_phase starts."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: torch.cuda.is_available() is false")
+    xtt = import_port()
+    from xgcm_tpu_torch.ops.kernels import build
+
+    build.load_library()  # built by the parent process
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    xarray_phase(xtt, build, gen, dev, card_line(), shift_ms)
+    return 0
+
+
+def xarray_phase(xtt, build, gen, dev, card, shift_ms, nz=NZ, ny=NY, nx=NX):
+    """Phase 10: the profiling helpers (first, while the process is young);
+    a user's xarray data through Grid(xr.Dataset) and the entry points at
+    one LLC4320 face, each call against the native call on the card
+    (launches, values, coordinates, times); regrid_vertical at the face and
+    against the CPU."""
+    t0 = time.perf_counter()
+    check_profiling(xtt, gen, dev, card, shift_ms)
+    log("phase 10: the xarray of this phase is the repo's stub, tests/fake_xarray.py (the "
+        "card's machine has no xarray)")
+    with xarray_stub() as xr, warnings.catch_warnings():
+        # keep_coords=False, the default of diff, warns its deprecation
+        warnings.simplefilter("ignore", DeprecationWarning)
+        xarray_budget_calls(xtt, xr, gen, dev, build, card, nz, ny, nx)
+        torch.cuda.empty_cache()
+        q, tr, levels = xarray_density_calls(xtt, xr, gen, dev, build, card, nz, ny, nx)
+    torch.cuda.empty_cache()
+    check_regrid(xtt, q, tr, levels, dev, card)
+    check_regrid_small(xtt, q, tr, levels, dev)
+    del q, tr
+    torch.cuda.empty_cache()
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    # phase 10 alone, in the process run_xarray_phase starts
+    parser.add_argument("--xarray-phase", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--shift-ms", type=float, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.xarray_phase:
+        return xarray_phase_main(args.seed, args.shift_ms)
 
     # ---- phase 1: device ------------------------------------------------
     t_start = time.perf_counter()
@@ -2024,6 +2454,11 @@ def main(argv=None) -> int:
 
     # ---- phase 9: the metric path at one LLC4320 face -------------------
     metric_phase(xtt, build, gen, dev, card)
+
+    # ---- phase 10: the xarray path at one LLC4320 face ------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    run_xarray_phase(args.seed, times["shift"][0])
 
     report = {"kernels": [
         {

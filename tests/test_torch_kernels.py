@@ -8,7 +8,8 @@ each kernel against its plain version on the same inputs, the multi-variable
 kernels against single calls, gradients through the kernels against the
 plain versions', and the analysis step, the density-space transforms, the
 face analysis of an LLC grid and the tracer budget on the card against the
-same calls on the CPU.
+same calls on the CPU; the xarray path on the card against the native
+calls.
 On the CPU, the plain versions of kernels D and E also against the Pallas
 kernels they replace (interpret mode) and the JAX formulations.  The card's
 machine has no JAX, so JAX is imported inside the CPU tests only.
@@ -28,6 +29,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -744,3 +746,22 @@ def test_tracer_budget_on_card_matches_cpu(cuda):
     for a, b in zip(on_card, on_cpu):
         assert a.dims == b.dims and a.dtype == b.dtype and a.data.device.type == "cuda"
         _assert_same_values(a.data.cpu(), b.data)
+
+
+@pytest.mark.cuda
+def test_xarray_path_on_card_matches_native(cuda):
+    """chip_smoke's phase 10 on a 12 x 40 x 72 grid: xarray diffs,
+    derivative and integrate through Grid(xr.Dataset), and linear and
+    conservative transforms of one field and of four, each equal to the
+    native call on the card bit for bit with the same launches (A, C, G, F,
+    H) and xgcm's coordinates; regrid_vertical on the card equals the
+    CPU."""
+    nz, ny, nx = chip_smoke.XARRAY_SMALL
+    g = torch.Generator(device=cuda).manual_seed(29)
+    with chip_smoke.xarray_stub() as xr, warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        chip_smoke.xarray_budget_calls(xtt, xr, g, cuda, build, "test", nz, ny, nx)
+        q, tr, levels = chip_smoke.xarray_density_calls(xtt, xr, g, cuda, build, "test", nz,
+                                                        ny, nx)
+    assert "xarray" not in sys.modules or sys.modules["xarray"].__name__ != "fake_xarray"
+    chip_smoke.check_regrid_small(xtt, q, tr, levels, cuda)

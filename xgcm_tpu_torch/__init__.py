@@ -5,7 +5,10 @@ Finite-volume analysis of staggered (Arakawa) grid datasets: position-aware
 components, on face-less and face-connected grids (MITgcm, NEMO, MOM6,
 cubed sphere, LLC; see :mod:`.grids`), the metric-weighted calculus
 (``derivative``, ``integrate``, ``average``, ``cumint``), and the linear,
-log and conservative vertical transforms, on torch tensors.  On a CUDA tensor the hot paths run
+log and conservative vertical transforms, on torch tensors; the legacy
+vertical binner (:mod:`.ops.regridding`) and timers (:mod:`.utils`).  With
+xarray installed, ``Grid`` takes an ``xr.Dataset`` and its entry points take
+and give ``xr.DataArray`` (:mod:`.adapters.xarray_adapter`).  On a CUDA tensor the hot paths run
 hand-written CUDA kernels (``csrc/``); on a CPU tensor they run the kernels'
 plain PyTorch versions.  Host data that enters the package goes to the CUDA
 card unless the caller asks for the CPU (:func:`set_default_device`).

@@ -8,8 +8,10 @@ with its fused shift fast paths (face-less and face-connected),
 ``cumsum``, the metric-weighted calculus (``derivative``, ``integrate``,
 ``cumint``, ``average`` and ``metric_weighted=``),
 ``diff_2d_vector``/``interp_2d_vector``, and ``transform``/
-``transform_multi``.  The xarray bridge is not ported yet (ROADMAP Queue 1,
-item 1): inputs are GriddedArrays.
+``transform_multi``.  Inputs are GriddedArrays or, with xarray installed,
+``xr.DataArray``s: the entry points take either, and give xarray back for
+xarray in, with the coordinates reattached by xgcm's rules
+(:mod:`xgcm_tpu_torch.adapters.xarray_adapter`).
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ import torch
 
 from . import gridops
 from .axis import Axis
-from .dataarray import GriddedArray, _broadcast_align, _expand_to
+from .dataarray import GriddedArray, _broadcast_align, _expand_to, as_tensor
 from .dataset import Dataset
+from .device import get_default_device
 from .grid_ufunc import (
     GridUFunc,
     GridUFuncSignature,
@@ -64,7 +67,8 @@ class Grid:
         metrics: Optional[Mapping] = None,
         autoparse_metadata: bool = True,
     ):
-        """Create a Grid from a Dataset.
+        """Create a Grid from a Dataset (or an ``xr.Dataset``, with xarray
+        installed).
 
         ``coords`` maps axis name -> {position: dim name};
         ``periodic``/``boundary``/``fill_value`` take scalars or per-axis
@@ -74,10 +78,15 @@ class Grid:
         names of metric variables in ``ds``.
         """
         if not isinstance(ds, Dataset):
-            raise TypeError(
-                f"ds argument to Grid must be an xgcm_tpu_torch.Dataset, but "
-                f"is of type {type(ds)}"
-            )
+            from ..adapters.xarray_adapter import maybe_from_xarray
+
+            converted = maybe_from_xarray(ds)
+            if converted is None:
+                raise TypeError(
+                    f"ds argument to Grid must be an xgcm_tpu_torch.Dataset (or "
+                    f"xarray.Dataset), but is of type {type(ds)}"
+                )
+            ds = converted
         self._ds = ds
 
         if autoparse_metadata:
@@ -374,7 +383,9 @@ class Grid:
         """
         metric_vars = None
         array_dims = set(array.dims)
-        device = array.device
+        # an xarray array (derivative's host result) takes the metric on
+        # the device its op ran on
+        device = array.device if isinstance(array, GriddedArray) else get_default_device()
 
         self._get_dims_from_axis(array, frozenset(axes))
 
@@ -434,7 +445,12 @@ class Grid:
 
     def interp_like(self, array, like, boundary=None, fill_value=None):
         """Interpolate ``array`` to the grid positions of ``like`` along
-        every axis where they differ."""
+        every axis where they differ.  An ``xr.DataArray`` ``array`` is
+        converted and the result is a GriddedArray, as in the JAX package;
+        only the dims of ``like`` are read."""
+        from ..adapters.xarray_adapter import as_native
+
+        array = as_native(array)
         interp_axes = []
         for axname, axis in self.axes.items():
             try:
@@ -483,11 +499,17 @@ class Grid:
         the fused shift path serves what it can.  ``metric_weighted`` (axes,
         or a per-axis dict of axes) multiplies by that metric before each
         axis's op and divides by the metric at the result's position
-        after it."""
+        after it.  xarray in gives xarray out: grid coordinates on the
+        position-shifted dims, the inputs' coordinates on the others."""
+        from ..adapters.xarray_adapter import as_native, collect_xr_inputs
+
         if isinstance(axis, str):
             axis = [axis]
 
+        return_xr, xr_args = collect_xr_inputs([data])
         data = _check_data_input(data, self)
+        if isinstance(other_component, dict):
+            other_component = {k: as_native(v) for k, v in other_component.items()}
         data_unpacked = _maybe_unpack_vector_component(data)
         to = self._map_kwargs_over_axes(to)
         if isinstance(metric_weighted, str):
@@ -524,6 +546,15 @@ class Grid:
 
             if ax_metric_weighted:
                 array = array / self.get_metric(array, ax_metric_weighted)
+
+        if return_xr:
+            from ..adapters.xarray_adapter import reattach_coords
+
+            out_core_dim_names = {
+                self.axes[ax_name].coords[sig.out_ax_positions[0][0]]
+                for sig, ax_name in zip(signatures, axis)
+            }
+            array = reattach_coords(array, self, xr_args, out_core_dim_names, keep_coords)
         return array
 
     def _maybe_fused_1d_op(
@@ -781,8 +812,12 @@ class Grid:
         """Cumulative sum along each axis in turn, onto the position ``to``
         (by default the axis's default shift): the prefix sum, then the
         position pair's trim and pad (through the face-connection halos on
-        a face-connected grid).  ``keep_coords`` is accepted for API parity
-        and ignored."""
+        a face-connected grid).  ``keep_coords`` applies to xarray results
+        only."""
+        from ..adapters.xarray_adapter import as_native, collect_xr_inputs
+
+        return_xr, xr_args = collect_xr_inputs([da])
+        da = as_native(da)
         if isinstance(axis, str):
             axis = [axis]
         to = self._map_kwargs_over_axes(to)
@@ -791,6 +826,7 @@ class Grid:
         metric_weighted = self._map_kwargs_over_axes(metric_weighted)
 
         data = da
+        new_dims = set()
         for ax_name in axis:
             # the typed unknown-axis and missing-dim errors
             self._get_dims_from_axis(data, ax_name)
@@ -838,10 +874,16 @@ class Grid:
                 boundary=boundary,
                 fill_value=fill_value,
             )
+            new_dims.add(ax.coords[ax_to])
             data = padded.rename_dims({dim: ax.coords[ax_to]})
 
             if ax_metric_weighted:
                 data = data / self.get_metric(data, ax_metric_weighted)
+
+        if return_xr:
+            from ..adapters.xarray_adapter import reattach_coords
+
+            data = reattach_coords(data, self, xr_args, new_dims, keep_coords)
         return data
 
     # ----------------------------------------------------------- vector ops
@@ -902,29 +944,59 @@ class Grid:
     # ----------------------------------------------- metric-weighted calculus
     def derivative(self, da, axis, **kwargs):
         """``diff`` along ``axis`` divided by the axis's metric at the
-        result's position."""
+        result's position.  For xarray input the division is xarray's, on
+        the host, as in the JAX package."""
+        from ..adapters.xarray_adapter import is_dataarray, to_xarray
+
         diff = self.diff(da, axis, **kwargs)
-        return diff / self.get_metric(diff, (axis,))
+        dx = self.get_metric(diff, (axis,))
+        if is_dataarray(diff):
+            dx = to_xarray(dx)  # xarray broadcasts the two by dim name
+        return diff / dx
 
     def integrate(self, da, axis, **kwargs):
         """The sum of ``da`` times the metric of ``axis`` over the axes'
         dims.  NaN in floating data is skipped (taken as 0; as in
         ``jnp.nan_to_num``, infinities become the largest finite values).
         Keywords go to :meth:`GriddedArray.sum`."""
+        from ..adapters.xarray_adapter import as_native, collect_xr_inputs
+
+        return_xr, xr_args = collect_xr_inputs([da])
+        da = as_native(da)
         weighted = da * self.get_metric(da, axis)
         dim = self._get_dims_from_axis(da, axis)
         if weighted.dtype.is_floating_point:
             weighted = weighted.with_data(torch.nan_to_num(weighted.data, nan=0.0))
-        return weighted.sum(dim, **kwargs)
+        out = weighted.sum(dim, **kwargs)
+        if return_xr:
+            from ..adapters.xarray_adapter import reattach_coords
+
+            # reductions shift no dim and keep the inputs' coordinates
+            out = reattach_coords(out, self, xr_args, set(), True)
+        return out
 
     def cumint(self, da, axis, **kwargs):
         """:meth:`cumsum` of ``da`` times the metric of ``axis``."""
-        return self.cumsum(da * self.get_metric(da, axis), axis, **kwargs)
+        from ..adapters.xarray_adapter import as_native, collect_xr_inputs
+
+        return_xr, xr_args = collect_xr_inputs([da])
+        da = as_native(da)
+        out = self.cumsum(da * self.get_metric(da, axis), axis, **kwargs)
+        if return_xr:
+            from ..adapters.xarray_adapter import reattach_coords
+
+            new_dims = {d for d in out.dims if d not in da.dims}
+            out = reattach_coords(out, self, xr_args, new_dims, kwargs.get("keep_coords", False))
+        return out
 
     def average(self, da, axis, **kwargs):
         """The metric-weighted mean over the axes' dims, NaN cells left out
         of both sums (xarray's ``weighted.mean``).  Keywords go to
         :meth:`GriddedArray.sum`."""
+        from ..adapters.xarray_adapter import as_native, collect_xr_inputs
+
+        return_xr, xr_args = collect_xr_inputs([da])
+        da = as_native(da)
         weight = self.get_metric(da, axis)
         dims = self._get_dims_from_axis(da, axis)
         x, w, out_dims = _broadcast_align(da, weight)
@@ -935,7 +1007,12 @@ class Grid:
         nan_mask = torch.isnan(x)
         num = GriddedArray(torch.where(nan_mask, 0.0, x) * w, out_dims, name=da.name)
         den = GriddedArray(torch.where(nan_mask, 0.0, w), out_dims, name=da.name)
-        return num.sum(dims, **kwargs) / den.sum(dims, **kwargs)
+        out = num.sum(dims, **kwargs) / den.sum(dims, **kwargs)
+        if return_xr:
+            from ..adapters.xarray_adapter import reattach_coords
+
+            out = reattach_coords(out, self, xr_args, set(), True)
+        return out
 
     def transform(self, da, axis, target, **kwargs):
         """Convert ``da`` to new 1D coordinates along ``axis``.
@@ -951,10 +1028,26 @@ class Grid:
         ``suffix`` and, for the conservative method, ``reassociate`` (see
         :func:`xgcm_tpu_torch.ops.transform.transform`).  On CUDA
         tensors the remap runs the linear (C) or conservative (G) kernel.
+        An ``xr.DataArray`` ``da`` gives one back, with the target values
+        (bin midpoints for the conservative method) on the new dim and the
+        coordinates of ``da``, then of an xarray ``target_data``, on the
+        others.
         """
+        from ..adapters.xarray_adapter import as_native, collect_xr_inputs
         from ..ops.transform import transform
 
-        return transform(self, axis, da, target, **kwargs)
+        return_xr, xr_args = collect_xr_inputs([da, kwargs.get("target_data")])
+        orig_target = target
+        da = as_native(da)
+        target = as_native(target)
+        if "target_data" in kwargs:
+            kwargs["target_data"] = as_native(kwargs["target_data"])
+        out = transform(self, axis, da, target, **kwargs)
+        if return_xr:
+            out = self._transform_to_xarray(
+                out, da, xr_args, orig_target, kwargs.get("method", "linear"), axis
+            )
+        return out
 
     def transform_multi(self, das, axis, target, **kwargs):
         """Transform several arrays onto the same target coordinate:
@@ -962,10 +1055,76 @@ class Grid:
         das]``.  On the card, 2 to 8 float32/bfloat16 arrays of equal dims
         share one kernel pass (F for linear/log, H for conservative) that
         reads ``target_data`` once; everywhere else the list is built by
-        that loop."""
+        that loop.  Each ``xr.DataArray`` in ``das`` gives one back, its own
+        coordinates winning over ``target_data``'s."""
+        from ..adapters.xarray_adapter import as_native, is_dataarray
         from ..ops.transform import transform_multi
 
-        return transform_multi(self, axis, das, target, **kwargs)
+        orig_das = list(das)
+        orig_target = target
+        orig_target_data = kwargs.get("target_data")
+        das = [as_native(d) for d in orig_das]
+        target = as_native(target)
+        if "target_data" in kwargs:
+            kwargs["target_data"] = as_native(kwargs["target_data"])
+        outs = transform_multi(self, axis, das, target, **kwargs)
+        method = kwargs.get("method", "linear")
+        return [
+            self._transform_to_xarray(
+                o, d, [a for a in (orig, orig_target_data) if is_dataarray(a)],
+                orig_target, method, axis,
+            )
+            if is_dataarray(orig) else o
+            for o, d, orig in zip(outs, das, orig_das)
+        ]
+
+    def _transform_to_xarray(self, out, da_native, xr_args, target, method, axis):
+        """A transform's result as xarray: the target values (bin midpoints
+        for the conservative method) on the new dim, the inputs'
+        coordinates on the dims left as they were."""
+        from ..adapters.xarray_adapter import host_array, is_dataarray, reattach_coords
+
+        # the new dim is named after the target or target_data, or, with
+        # neither named, it is the source dim's name reused at the target's
+        # size: resolved from the axis, so that a target as long as the
+        # source still gets its own values as the coordinate
+        new_dims = {d for d in out.dims if d not in da_native.dims}
+        if not new_dims:
+            _, src_dim = self.axes[axis]._get_position_name(da_native)
+            if src_dim in out.dims:
+                new_dims = {src_dim}
+        extra = {}
+        if len(new_dims) == 1:
+            (tdim,) = new_dims
+            tvals = host_array(target.values if is_dataarray(target) else
+                               target.data if isinstance(target, GriddedArray) else target)
+            if tvals.ndim == 1:
+                if method == "conservative":
+                    tvals = 0.5 * (tvals[:-1] + tvals[1:])
+                if tvals.shape[0] == out.sizes[tdim]:
+                    extra[tdim] = (tdim, tvals)
+        return reattach_coords(out, self, xr_args, new_dims, True, extra_coords=extra,
+                               skip_conflicting_sizes=True)
+
+
+def raw_interp_function(data_left, data_right):
+    """Legacy two-point interpolation helper: the mean of the two."""
+    return 0.5 * (data_left + data_right)
+
+
+def raw_diff_function(data_left, data_right):
+    """Legacy two-point difference helper: right minus left."""
+    return data_right - data_left
+
+
+def raw_min_function(data_left, data_right):
+    """Legacy pairwise minimum helper (NaN propagates)."""
+    return torch.minimum(as_tensor(data_right), as_tensor(data_left))
+
+
+def raw_max_function(data_left, data_right):
+    """Legacy pairwise maximum helper (NaN propagates)."""
+    return torch.maximum(as_tensor(data_right), as_tensor(data_left))
 
 
 def _metric_product(factors, array) -> GriddedArray:

@@ -6,9 +6,10 @@ The counterpart of :mod:`xgcm_tpu.core.grid_ufunc` on torch tensors:
     transpose-core-dims-last -> kernel -> relabel dims -> restore dim order
 
 It serves every position pair and dtype the fused shift path does not
-(inner/outer pairs, integer and bool inputs, custom kernels).  The xarray
-bridge is not ported yet (ROADMAP Queue 1, item 1): inputs must be
-:class:`GriddedArray` or single-entry vector-component dicts of them.
+(inner/outer pairs, integer and bool inputs, custom kernels).  Inputs are
+:class:`GriddedArray` or single-entry vector-component dicts of them; with
+xarray installed, ``xr.DataArray`` inputs convert on entry and the results
+go back to xarray (:mod:`xgcm_tpu_torch.adapters.xarray_adapter`).
 """
 
 from __future__ import annotations
@@ -51,15 +52,23 @@ def _maybe_unpack_vector_component(data: DataInput) -> GriddedArray:
 
 
 def _check_data_input(data: DataInput, grid: "Grid") -> DataInput:
-    """Validate a scalar or single-component-vector input."""
+    """Validate a scalar or single-component-vector input, converting
+    ``xr.DataArray`` inputs to GriddedArrays when xarray is installed."""
     if data is None:
         return data
+    if not isinstance(data, (GriddedArray, dict)):
+        from ..adapters.xarray_adapter import as_native
+
+        data = as_native(data)
     if not isinstance(data, (GriddedArray, dict)):
         raise TypeError(
             "All data arguments must be either a GriddedArray or Dictionary. "
             f"Got {type(data)}."
         )
     if isinstance(data, dict):
+        from ..adapters.xarray_adapter import as_native
+
+        data = {k: as_native(v) for k, v in data.items()}
         if len(data) != 1:
             raise ValueError(
                 "Vector components provided as dictionaries should contain "
@@ -247,14 +256,19 @@ def apply_as_grid_ufunc(
 
     The axis positions of inputs and outputs are specified by ``signature``
     (e.g. ``"(X:center)->(X:left)"``); axis names therein are dummy variables
-    bound to the real axes named in ``axis``.  ``keep_coords``, ``dask`` and
-    ``map_overlap`` are accepted for API parity and ignored: the native
-    container carries no coordinate labels and no dask chunks.  Passed to a
-    Grid op, any of them sends the call to this engine.
+    bound to the real axes named in ``axis``.  When the first input is an
+    ``xr.DataArray`` the results are too, with their coordinates reattached
+    (``keep_coords=False`` drops the non-dimension ones); native results
+    carry no coordinates.  ``dask`` and ``map_overlap`` are accepted for API
+    parity and ignored: there are no dask chunks.  Passed to a Grid op,
+    either of them sends the call to this engine.
     """
     if grid is None:
         raise ValueError("Must provide a grid object to describe the Axes")
 
+    from ..adapters.xarray_adapter import collect_xr_inputs
+
+    return_xr, xr_args = collect_xr_inputs(args)
     args = _promote_to_sequence_and_check(args, grid)
     other_component = _promote_to_sequence_and_check(other_component, grid)
     if len(other_component) == 1 and other_component[0] is None:
@@ -342,6 +356,16 @@ def apply_as_grid_ufunc(
     # Name outputs after the (first) input, like xarray propagates names.
     first = _maybe_unpack_vector_component(args[0])
     results = tuple(r.rename(first.name) for r in results)
+
+    if return_xr:
+        from ..adapters.xarray_adapter import reattach_coords
+
+        # the output core dims take their coordinates from the grid
+        out_core_names = {d for dims in out_core_dims for d in dims}
+        results = tuple(
+            reattach_coords(r, grid, xr_args, out_core_names, keep_coords, boundary_width)
+            for r in results
+        )
     if len(results) == 1:
         return results[0]
     return results
