@@ -3,7 +3,7 @@
 
 Builds the eight hand-written CUDA kernels from ``xgcm_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes of the main
-paths, and drives six paths at the width of LLC4320 (4320 x 4320 columns a
+paths, and drives seven paths at the width of LLC4320 (4320 x 4320 columns a
 face, 50 levels, float32):
 
 * the C-grid analysis step (``xgcm_tpu_torch.entry.step``, kernels A and C)
@@ -32,7 +32,15 @@ face, 50 levels, float32):
   card (the same launches of A, C, G, F, H, the same values bit for bit,
   xgcm's coordinates, the time and the profiler's split into copies,
   kernels and idle); ``regrid_vertical`` at the face and against the CPU;
-  ``utils.device_time`` and ``utils.trace``.
+  ``utils.device_time`` and ``utils.trace``;
+* the sharded layer at one face, in a process of its own, on four logical
+  shards of the card (on the visible cards in turn where there are
+  several): the ring route's diff, interp, min and max (kernel E a block),
+  the sharded cumsum, derivative and integrate, the batch route (kernel A
+  a block), the sharded C-grid diagnostics on a 2 x 2 mesh and the
+  per-shard transforms (C, G, F, H a block), each against the
+  single-device call, with its collectives held to the JAX package's
+  budget, its time beside the single-device time and the profiler's split.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; the script checks that every kernel of the path launched and that
@@ -50,6 +58,7 @@ a column's cells (``CONSERVATIVE_CASES``, infinite bounds among them), and
 H against V single calls of G bit for bit.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --sharded-phase     # phase 11 alone
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 describing the kernels, then ``{"ok": true, "device": {...}}`` as the last
@@ -86,6 +95,7 @@ NZ = 50
 N_TARGETS = 36
 N_EDGES = 36  # 35 density classes
 NV = 4  # T, S, u, v
+N_SHARDS = 4  # logical shards on the one card (phase 11)
 SAMPLE = 65536  # columns of the main path held against the plain version
 TOL_F32 = dict(rtol=1e-6, atol=1e-6)  # nvcc contracts a*b+c into FMAs
 TOL_BF16 = dict(rtol=1e-2, atol=1e-5)
@@ -1315,9 +1325,24 @@ def check_face_shift(check, gen, dev):
                 compare_by_face(check, "face_shift", label, got, want, exact=True)
                 del got, want
         del x, halo, xd, hd
+    # the axis= form of the ring route (phase 11): one shard's block of
+    # 50 levels of a face along each of its axes, aligned and misaligned
+    shape = (NZ, NY, NX // N_SHARDS)
+    for misaligned, axis in itertools.product((False, True), range(3)):
+        x = sprinkled(gen, dev, shape, torch.float32, misaligned)
+        hshape = shape[:axis] + shape[axis + 1:]
+        halo = sprinkled(gen, dev, hshape, torch.float32, misaligned)
+        for op, direction in itertools.product(SHIFT_OPS, ("left", "right")):
+            label = f"{shape}/axis={axis}/{op}/{direction}/{'mis' if misaligned else ''}aligned"
+            got = k.face_shift(x, halo, op, direction, axis=axis)
+            want = k.face_shift_plain(x, halo, op, direction, axis=axis)
+            compare_by_face(check, "face_shift", label, got, want, exact=True)
+            del got, want
+        del x, halo
     torch.cuda.synchronize()
     log("phase 3: face_shift kernel matches its plain version (bitwise f32 and bf16, "
-        "13 x 4320^2 and (2, 13, 48, 48))")
+        "13 x 4320^2 and (2, 13, 48, 48); its axis= form bitwise f32 on a "
+        f"{shape} block along axes 0, 1 and 2, aligned and misaligned)")
 
 
 def face_analysis(grid, xtt, th, u, v, lead=()):
@@ -2121,15 +2146,372 @@ def xarray_phase(xtt, build, gen, dev, card, shift_ms, nz=NZ, ny=NY, nx=NX):
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
 
+# ---- phase 11: the sharded layer -----------------------------------------------
+SHARDED_SMALL = (6, 16, 24)  # (nz, ny, nx) of the cuda test's run of the phase
+# the collectives of one op, by boundary: the counts of the jaxprs of
+# xgcm_tpu's ShardedGrid on the same programs, which
+# tests/test_torch_inspection.py holds the port to on the CPU
+RING_BUDGET = {"periodic": {"ppermute": 1}, "fill": {"ppermute": 1},
+               "extend": {"ppermute": 1, "all_gather": 2}}
+CUMSUM_BUDGET = {"fill": {"ppermute": 1, "all_gather": 1},
+                 "periodic": {"ppermute": 1, "all_gather": 2}}
+# tests/test_sharding.py holds the sharded cumsum to rtol 1e-12 in float64;
+# scaled by the ratio of the float32 and float64 units in the last place
+# (2^-23 / 2^-52), about 5.4e-4
+CUMSUM_RTOL = 1e-12 * 2.0 ** 29
+METRIC_RTOL = 1e-7  # tests/test_sharded_ufunc.py: assert_allclose's default
+
+
+def sharded_class(name: str) -> str:
+    """The class of a profiler event in the sharded phase: a kernel of the
+    port, a copy (the halo exchange's copies between blocks, and the
+    concatenations of gathered edge lines), or other."""
+    for key, cls in (("face_shift_kernel", "E"), ("shift_rows", "A"), ("shift_planes", "A"),
+                     ("interp_linear_kernel", "C/F"), ("conservative_kernel", "G/H")):
+        if key in name:
+            return cls
+    if "Memcpy" in name or "copy" in name.lower() or "Cat" in name:
+        return "copies"
+    return "other"
+
+
+def sharded_split(fn, reps=3):
+    """'E 1.2 ms; copies 0.1 ms; ...; idle share x' per call of fn from one
+    profiler window, or "not measured"."""
+    averages, wall = profile_window(fn, reps)
+    split = {}
+    for e in averages or ():
+        if e.self_device_time_total > 0:
+            c = sharded_class(e.key)
+            split[c] = split.get(c, 0.0) + e.self_device_time_total / 1e3 / reps
+    if not split:
+        return "split not measured (no device time from torch.profiler)"
+    busy = sum(split.values())
+    return ("; ".join(f"{k} {ms:.4f} ms" for k, ms in sorted(split.items(), key=lambda kv: -kv[1]))
+            + f"; wall {wall:.4f} ms, idle share {max(0.0, 1 - busy / wall):.4f}")
+
+
+def counted_call(build, call):
+    """(result, kernel launches, collectives) of one call, with both counts
+    set to 0 just before it and read just after."""
+    from xgcm_tpu_torch.utils import count_collectives
+
+    box = {}
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    cc = count_collectives(lambda: box.setdefault("out", call()))
+    torch.cuda.synchronize()
+    return box["out"], build.launch_counts(), cc
+
+
+def expect_counts(label, launches, cc, want_launches, want_cc):
+    got = {k: launches[k] for k in want_launches}
+    if got != want_launches:
+        raise AssertionError(f"{label}: launches {got}, expected {want_launches}")
+    want_cc = {**want_cc, "total": sum(want_cc.values())}
+    if cc != want_cc:
+        raise AssertionError(f"{label}: collectives {cc}, expected {want_cc} (the JAX budget)")
+
+
+def phase_devices(dev, n):
+    """The devices of an n-shard mesh: logical shards of the one card, or
+    the visible cards in turn where there are several (the same code then
+    copies halos between cards)."""
+    if dev.type != "cuda":
+        return [dev] * n
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % cards) for i in range(n)]
+
+
+def same_by_block(label, got, want, rtol=None):
+    """Each block of a sharded result against the matching slice of the
+    single-device result: on its mesh coordinate's device, the same dims,
+    NaN and infinities in the same places, and equal values (``rtol``:
+    within it)."""
+    st = got.data
+    if got.dims != want.dims or tuple(st.shape) != tuple(want.shape):
+        raise AssertionError(f"{label}: {got.dims} {tuple(st.shape)}, single-device "
+                             f"{want.dims} {tuple(want.shape)}")
+    for c in np.ndindex(st.blocks.shape):
+        b = st.blocks[c]
+        if b.device != st.mesh.devices[c]:
+            raise AssertionError(f"{label}: block {c} on {b.device}, its mesh coordinate on "
+                                 f"{st.mesh.devices[c]}")
+        w = want.data[st.block_index(c)].to(b.device)
+        if rtol is None:
+            ok = same_values(b, w)
+        else:
+            fin = torch.isfinite(w)
+            ok = (torch.equal(torch.isnan(b), torch.isnan(w))
+                  and torch.equal(b[~fin].nan_to_num(), w[~fin].nan_to_num())
+                  and bool(torch.isclose(b[fin], w[fin], rtol=rtol, atol=0.0).all()))
+        if not ok:
+            raise AssertionError(f"{label}: block {c} differs from the single-device result")
+
+
+def sharded_inputs(gen, dev, nz, ny, nx):
+    """theta (nz, ny, nx) f32 of the budget's range, with NaN and +-inf,
+    two of them on either side of the first shard boundary along X."""
+    theta = torch.rand((nz, ny, nx), generator=gen, device=dev).add_(20.0)
+    b = nx // N_SHARDS
+    theta[3, 5, 0] = float("nan")
+    theta[1, 7, nx - 1] = float("inf")
+    theta[2, 2, b - 1] = -float("inf")
+    theta[2, 2, b] = float("nan")
+    return theta
+
+
+def sharded_phase(xtt, build, gen, dev, card, nz=NZ, ny=NY, nx=NX, timing=True):
+    """Phase 11: the sharded layer on logical shards of the one card, at
+    one LLC4320 face: the ring route (kernel E per block), the sharded
+    cumsum, the batch route (A per block), the sharded C-grid diagnostics
+    on a 2 x 2 mesh, the per-shard transforms (C, G, F, H per block), the
+    metric route; each against the single-device call, with its launches,
+    collectives, time and peak memory."""
+    from xgcm_tpu_torch import parallel as par
+    from xgcm_tpu_torch.parallel.diagnostics import sharded_cgrid_diagnostics
+
+    t_phase = time.perf_counter()
+    times = []
+    # CUDA events and the profiler window time one card's stream
+    timing = timing and len(set(phase_devices(dev, N_SHARDS))) == 1
+
+    def timed(name, sharded, single):
+        if timing:
+            s_ms, one_ms = time_pair(sharded, single, reps=3)
+            times.append((name, s_ms, one_ms, sharded_split(sharded)))
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    grid = budget_grid(xtt, nx, ny, nz)
+    th = xtt.GriddedArray(sharded_inputs(gen, dev, nz, ny, nx), ("zc", "yc", "xc"),
+                          name="theta")
+    mesh = par.make_mesh({"x": N_SHARDS}, devices=phase_devices(dev, N_SHARDS))
+    sg = par.ShardedGrid(grid, mesh, {"X": "x"})
+    th_sh = sg.shard(th)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    log(f"phase 11: theta ({nz}, {ny}, {nx}) f32 ({th.data.numel() * 4 / 1e9:.2f} GB) and its "
+        f"{N_SHARDS} blocks along X ({nx // N_SHARDS} columns each); mesh {mesh}")
+
+    def peak_gb():
+        return (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+    # (1) the ring route: kernel E once per block, no kernel A
+    peaks = []
+    for bc in ("periodic", "fill", "extend"):
+        for op in SHIFT_OPS:
+            label = f"ring {op} X {bc}"
+            torch.cuda.reset_peak_memory_stats(dev)
+            out, launches, cc = counted_call(
+                build, lambda: getattr(sg, op)(th_sh, "X", boundary=bc, fill_value=1.5))
+            peaks.append(peak_gb())
+            expect_counts(label, launches, cc, {"face_shift": N_SHARDS, "shift": 0},
+                          RING_BUDGET[bc])
+            same_by_block(label, out, getattr(grid, op)(th, "X", boundary=bc, fill_value=1.5))
+            del out
+    log(f"phase 11: ring route: diff, interp, min, max along X under periodic, fill and extend "
+        f"== the single-device op bit for bit (NaN and infinities in the same places), kernel "
+        f"E {N_SHARDS} launches and kernel A none per op, collectives {RING_BUDGET} (the JAX "
+        f"budget); peak device memory {max(peaks):.2f} GB above the inputs [{card}]")
+    for bc in ("periodic", "extend"):
+        timed(f"ring diff X {bc}", lambda: sg.diff(th_sh, "X", boundary=bc),
+              lambda: grid.diff(th, "X", boundary=bc))
+
+    # (2) the sharded cumsum
+    for bc in ("fill", "periodic"):
+        label = f"cumsum X to=left {bc}"
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, launches, cc = counted_call(
+            build, lambda: sg.cumsum(th_sh, "X", to="left", boundary=bc))
+        expect_counts(label, launches, cc, {"face_shift": 0, "shift": 0}, CUMSUM_BUDGET[bc])
+        same_by_block(label, out, grid.cumsum(th, "X", to="left", boundary=bc),
+                      rtol=CUMSUM_RTOL)
+        log(f"phase 11: {label} == the single-device cumsum within rtol {CUMSUM_RTOL:.2e} (the "
+            f"JAX test's 1e-12 scaled to f32), same NaN and infinities; collectives {cc}; peak "
+            f"device memory {peak_gb():.2f} GB above the inputs [{card}]")
+        del out
+    timed("cumsum X to=left fill", lambda: sg.cumsum(th_sh, "X", to="left", boundary="fill"),
+          lambda: grid.cumsum(th, "X", to="left", boundary="fill"))
+
+    # (3) the metric route, while X is sharded
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, launches, cc = counted_call(build, lambda: sg.derivative(th_sh, "X"))
+    expect_counts("derivative X", launches, cc, {"face_shift": N_SHARDS, "shift": 0},
+                  RING_BUDGET["periodic"])
+    same_by_block("derivative X", out, grid.derivative(th, "X"), rtol=METRIC_RTOL)
+    del out
+    par.reset_assembly_count()
+    out, launches, cc = counted_call(build, lambda: sg.integrate(th_sh, "Z"))
+    assemblies = par.assembly_count()
+    want = grid.integrate(th, "Z")
+    if out.dims != want.dims or not torch.allclose(out.data, want.data, rtol=METRIC_RTOL,
+                                                   atol=0.0, equal_nan=True):
+        raise AssertionError("integrate Z: differs from the single-device call")
+    if cc["total"] != 0:
+        raise AssertionError(f"integrate Z: collectives {cc}, expected none")
+    log(f"phase 11: metric route: derivative X (E {N_SHARDS} launches, one ppermute) and "
+        f"integrate Z == the single-device calls within rtol {METRIC_RTOL} (the JAX tests'); "
+        f"integrate assembled the product {assemblies} time(s) (the gather around the sum), "
+        f"no collective; peak device memory {peak_gb():.2f} GB above the inputs [{card}]")
+    del out, want
+    timed("derivative X", lambda: sg.derivative(th_sh, "X"), lambda: grid.derivative(th, "X"))
+    timed("integrate Z", lambda: sg.integrate(th_sh, "Z"), lambda: grid.integrate(th, "Z"))
+    del th_sh
+    torch.cuda.empty_cache()
+
+    # (4) the batch route: Z over two shards, kernel A once per block
+    mesh_z = par.make_mesh({"z": 2}, devices=phase_devices(dev, 2))
+    sgz = par.ShardedGrid(grid, mesh_z, {"zc": "z"})
+    th_z = sgz.shard(th)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, launches, cc = counted_call(build, lambda: sgz.diff(th_z, "X"))
+    expect_counts("batch diff X", launches, cc, {"shift": 2, "face_shift": 0}, {})
+    same_by_block("batch diff X", out, grid.diff(th, "X"))
+    log(f"phase 11: batch route: diff X with Z over 2 shards ({nz // 2} levels each) == the "
+        f"single-device diff bit for bit, kernel A 2 launches, no collective; peak device "
+        f"memory {peak_gb():.2f} GB above the inputs [{card}]")
+    del out
+    timed("batch diff X (Z over 2)", lambda: sgz.diff(th_z, "X"), lambda: grid.diff(th, "X"))
+    del th_z, th
+    torch.cuda.empty_cache()
+
+    # (5) the sharded diagnostics on a 2 x 2 mesh
+    u = xtt.GriddedArray(torch.randn((ny, nx), generator=gen, device=dev), ("yc", "xg"),
+                         name="u")
+    v = xtt.GriddedArray(torch.randn((ny, nx), generator=gen, device=dev), ("yg", "xc"),
+                         name="v")
+    mesh2 = par.make_mesh({"y": 2, "x": 2}, devices=phase_devices(dev, 4))
+    m2 = {"xc": "x", "xg": "x", "yc": "y", "yg": "y"}
+    sg2 = par.ShardedGrid(grid, mesh2, m2)
+
+    def chain(g):
+        zeta = g.diff(v, "X") - g.diff(u, "Y")
+        div = g.diff(u, "X", to="center") + g.diff(v, "Y", to="center")
+        u_c, v_c = g.interp(u, "X", to="center"), g.interp(v, "Y", to="center")
+        return zeta, div, 0.5 * (u_c * u_c + v_c * v_c)
+
+    fused, launches, cc = counted_call(
+        build, lambda: sharded_cgrid_diagnostics(grid, u, v, mesh2, m2))
+    expect_counts("sharded diagnostics", launches, cc,
+                  {"shift": 0, "face_shift": 0, "cgrid_diagnostics": 0}, {"ppermute": 4})
+    seq, launches_seq, _ = counted_call(build, lambda: chain(sg2))
+    single = chain(grid)
+    for name, f, s, one in zip(("zeta", "div", "ke"), fused, seq, single):
+        same_by_block(f"diagnostics {name} (sequential sharded ops)", f, s.with_data(
+            s.data.full_tensor()))
+        same_by_block(f"diagnostics {name} (single-device ops)", f, one)
+    log(f"phase 11: sharded diagnostics {ny}x{nx} f32 on a 2 x 2 mesh: zeta, div, ke == the "
+        f"sequential sharded ops (E {launches_seq['face_shift']} launches) == the single-device "
+        f"Grid ops, bit for bit; 4 ppermutes, no kernel [{card}]")
+    del fused, seq, single
+    timed("sharded diagnostics (2 x 2)", lambda: sharded_cgrid_diagnostics(grid, u, v, mesh2, m2),
+          lambda: chain(grid))
+    del u, v
+    torch.cuda.empty_cache()
+
+    # (6) the per-shard transforms: the density columns at the face, X over
+    # the shards; the single-device results first, then the inputs are
+    # split (each freed as its blocks are made) and the sharded calls are
+    # held to them
+    cols = ny * nx
+    sig_b, sig_c, fields = density_columns(gen, dev, cols, n=nz)
+    edges, levels = density_targets(dev)
+    dgrid = density_grid(xtt, nz=nz)
+    ins = {"sb": xtt.GriddedArray(sig_b.view(ny, nx, nz + 1), ("y", "x", "zo"), name="sigma"),
+           "sc": xtt.GriddedArray(sig_c.view(ny, nx, nz), ("y", "x", "zc"), name="sigma")}
+    for f, nm in zip(fields, ("T", "S", "u", "v")):
+        ins[nm] = xtt.GriddedArray(f.view(ny, nx, nz), ("y", "x", "zc"), name=nm)
+    del sig_b, sig_c, fields, f
+    four = ("T", "S", "u", "v")
+
+    def calls(g, a):
+        return {
+            "interp_linear": lambda: [g.transform(a["T"], "Z", levels, target_data=a["sc"])],
+            "conservative": lambda: [g.transform(a["T"], "Z", edges, target_data=a["sb"],
+                                                 method="conservative")],
+            "interp_linear_multi": lambda: g.transform_multi([a[k] for k in four], "Z", levels,
+                                                             target_data=a["sc"]),
+            "conservative_multi": lambda: g.transform_multi([a[k] for k in four], "Z", edges,
+                                                            target_data=a["sb"],
+                                                            method="conservative"),
+        }
+
+    single = {name: call() for name, call in calls(dgrid, ins).items()}
+    one_ms = {}
+    if timing:
+        for name, call in calls(dgrid, ins).items():
+            one_ms[name], _ = time_pair(call, reps=3)
+    sgd = par.ShardedGrid(dgrid, mesh, {"x": "x"})
+    for k in list(ins):
+        ins[k] = sgd.shard(ins[k])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for name, call in calls(sgd, ins).items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        at = torch.cuda.memory_allocated(dev)
+        outs, launches, cc = counted_call(build, call)
+        peak = (torch.cuda.max_memory_allocated(dev) - at) / 1e9
+        expect_counts(f"per-shard {name}", launches, cc, {name: N_SHARDS}, {})
+        for o, w in zip(outs, single[name]):
+            same_by_block(f"per-shard {name} {o.name}", o, w)
+        del outs, single[name]
+        log(f"phase 11: per-shard {name} ({N_SHARDS} x {nx // N_SHARDS} x {ny} columns of {nz} "
+            f"levels) == the single-device call bit for bit, {N_SHARDS} launches, no collective; "
+            f"peak device memory {peak:.2f} GB above its inputs [{card}]")
+        if timing:
+            s_ms, _ = time_pair(call, reps=3)
+            times.append((f"per-shard {name}", s_ms, one_ms[name], sharded_split(call)))
+    del ins
+    torch.cuda.empty_cache()
+
+    if not timing:
+        log("phase 11: times not measured (CUDA events time one card's stream)")
+    for name, s_ms, one_ms_, split in times:
+        log(f"time phase 11 {name}: sharded {s_ms:.4f} ms, single-device {one_ms_:.4f} ms "
+            f"(CUDA events); sharded split: {split} [{card}]")
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+
+def run_sharded_phase(seed):
+    """Phase 11 in a process of its own, which this one waits for (as
+    phase 10, for torch.profiler's sake).  Fails when the phase fails."""
+    cmd = [sys.executable, str(pathlib.Path(__file__).resolve()), "--sharded-phase",
+           "--seed", str(seed)]
+    sys.stdout.flush()
+    rc = subprocess.run(cmd, timeout=900).returncode
+    if rc != 0:
+        raise AssertionError(f"phase 11 failed (exit code {rc})")
+
+
+def sharded_phase_main(seed) -> int:
+    """The entry of the process run_sharded_phase starts."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: torch.cuda.is_available() is false")
+    xtt = import_port()
+    from xgcm_tpu_torch.ops.kernels import build
+
+    build.load_library()  # built by the parent process
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    sharded_phase(xtt, build, gen, dev, card_line())
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     # phase 10 alone, in the process run_xarray_phase starts
     parser.add_argument("--xarray-phase", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--shift-ms", type=float, default=None, help=argparse.SUPPRESS)
+    # phase 11 alone, as the process run_sharded_phase starts
+    parser.add_argument("--sharded-phase", action="store_true",
+                        help="run phase 11, the sharded layer, alone")
     args = parser.parse_args(argv)
     if args.xarray_phase:
         return xarray_phase_main(args.seed, args.shift_ms)
+    if args.sharded_phase:
+        return sharded_phase_main(args.seed)
 
     # ---- phase 1: device ------------------------------------------------
     t_start = time.perf_counter()
@@ -2459,6 +2841,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     run_xarray_phase(args.seed, times["shift"][0])
+
+    # ---- phase 11: the sharded layer at one LLC4320 face -----------------
+    run_sharded_phase(args.seed)
 
     report = {"kernels": [
         {

@@ -9,7 +9,8 @@ kernels against single calls, gradients through the kernels against the
 plain versions', and the analysis step, the density-space transforms, the
 face analysis of an LLC grid and the tracer budget on the card against the
 same calls on the CPU; the xarray path on the card against the native
-calls.
+calls; the sharded layer on logical shards of the card against the
+single-device calls.
 On the CPU, the plain versions of kernels D and E also against the Pallas
 kernels they replace (interpret mode) and the JAX formulations.  The card's
 machine has no JAX, so JAX is imported inside the CPU tests only.
@@ -172,6 +173,37 @@ def test_shift_rejects_unknown_arguments():
         face_shift(torch.zeros(2, 3, 3), torch.zeros(2, 3), "mean", "left", True)
     with pytest.raises(ValueError, match="halo must be"):
         face_shift(torch.zeros(2, 3, 4), torch.zeros(2, 4), "diff", "left", True)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("direction", ["left", "right"])
+@pytest.mark.parametrize("op", ["diff", "interp", "min", "max"])
+def test_face_shift_axis_form_plain(op, direction, axis):
+    """Kernel E's axis= form (the ring route's local stencil): op(x,
+    neighbour) along any axis with the halo line x.shape less that axis,
+    against numpy's concatenate; the last two axes equal the face form."""
+    rng = np.random.RandomState(31)
+    x = rng.randn(4, 5, 6)
+    hshape = x.shape[:axis] + x.shape[axis + 1:]
+    halo = rng.randn(*hshape)
+    h = np.expand_dims(halo, axis)
+    n = x.shape[axis]
+    ops = {"diff": lambda lo, hi: hi - lo, "interp": lambda lo, hi: (hi + lo) * 0.5,
+           "min": np.minimum, "max": np.maximum}
+    if direction == "left":
+        want = ops[op](np.concatenate([h, np.take(x, range(n - 1), axis)], axis), x)
+    else:
+        want = ops[op](x, np.concatenate([np.take(x, range(1, n), axis), h], axis))
+    tx, th = torch.as_tensor(x), torch.as_tensor(halo)
+    got = face_shift(tx, th, op, direction, axis=axis)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, face_shift_plain(tx, th, op, direction, axis=axis))
+    if axis >= 1:
+        assert torch.equal(got, face_shift(tx, th, op, direction, axis == 2))
+    with pytest.raises(TypeError, match="one of axis_is_x and axis"):
+        face_shift(tx, th, op, direction, True, axis=axis)
+    with pytest.raises(ValueError, match="halo must be"):
+        face_shift(tx, torch.zeros(3), op, direction, axis=axis)
 
 
 VORTICITY_SHAPES = [(16, 128), (64, 256), (40, 384)]  # tests/test_pallas.py
@@ -619,6 +651,42 @@ def test_face_shift_kernel_matches_plain(cuda, op, direction, axis_is_x, dtype):
     p = _plain_in_f32(face_shift_plain, dtype, x, halo, op=op, direction=direction,
                       axis_is_x=axis_is_x)
     _assert_same_values(k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_face_shift_kernel_axis_form_matches_plain(cuda, axis, dtype, misaligned):
+    """The axis= form on a 3-D block along each axis, its data and halo
+    aligned and one element off 16 bytes, NaN and infinities in both."""
+    g = torch.Generator(device=cuda).manual_seed(33)
+    shape = (7, 37, 45)
+    hshape = shape[:axis] + shape[axis + 1:]
+    x = chip_smoke.sprinkled(g, cuda, shape, dtype, misaligned)
+    halo = chip_smoke.sprinkled(g, cuda, hshape, dtype, misaligned)
+    for op, direction in itertools.product(("diff", "interp", "min", "max"), ("left", "right")):
+        build.reset_launch_counts()
+        k = face_shift(x, halo, op, direction, axis=axis)
+        assert build.launch_counts()["face_shift"] == 1
+        p = _plain_in_f32(face_shift_plain, dtype, x, halo, op=op, direction=direction,
+                          axis=axis)
+        _assert_same_values(k, p)
+
+
+@pytest.mark.cuda
+def test_sharded_layer_on_card(cuda):
+    """chip_smoke's phase 11 on a 6 x 16 x 24 grid, logical shards of the
+    card: the ring route (E once per block, no A) and the sharded cumsum,
+    the metric route, the batch route (A once per block), the sharded
+    diagnostics on a 2 x 2 mesh and the per-shard transforms (C, G, F, H
+    once per block), each against the single-device call on the card, every
+    block of every result on the card, each collective count the JAX
+    budget."""
+    g = torch.Generator(device=cuda).manual_seed(34)
+    nz, ny, nx = chip_smoke.SHARDED_SMALL
+    chip_smoke.sharded_phase(xtt, build, g, torch.device("cuda", 0), "test", nz=nz, ny=ny,
+                             nx=nx, timing=False)
 
 
 @pytest.mark.cuda

@@ -250,6 +250,7 @@ def apply_as_grid_ufunc(
     ] = None,
     dask: Optional[str] = None,
     map_overlap: bool = False,
+    _pad_fn: Callable = pad,
     **kwargs,
 ) -> Any:
     """Apply a kernel to GriddedArrays in a grid-position-aware manner.
@@ -261,7 +262,10 @@ def apply_as_grid_ufunc(
     (``keep_coords=False`` drops the non-dimension ones); native results
     carry no coordinates.  ``dask`` and ``map_overlap`` are accepted for API
     parity and ignored: there are no dask chunks.  Passed to a Grid op,
-    either of them sends the call to this engine.
+    either of them sends the call to this engine.  ``_pad_fn`` is the pad
+    step, :func:`~xgcm_tpu_torch.core.padding.pad` by default, with pad's
+    signature; the sharded engine swaps in the blocks it padded with ring
+    halos (:mod:`xgcm_tpu_torch.parallel.sharded_ufunc`).
     """
     if grid is None:
         raise ValueError("Must provide a grid object to describe the Axes")
@@ -328,7 +332,7 @@ def apply_as_grid_ufunc(
         # other_component list rather than letting zip truncate silently
         ocs = list(other_component) + [None] * (len(seq) - len(other_component))
         return [
-            pad(
+            _pad_fn(
                 a,
                 grid=grid,
                 boundary_width=boundary_width_real,

@@ -5,6 +5,11 @@ of the JAX package (``__graft_entry__.entry``): C-grid vorticity,
 divergence and kinetic energy through the Grid API, then the kinetic energy
 remapped onto theta surfaces per column.  On CUDA tensors it runs the shift
 kernel (four diffs and two interps) and the linear-interpolation kernel.
+
+``dryrun_multichip(n_shards)`` runs one sharded program per ring-halo route
+of :mod:`xgcm_tpu_torch.parallel` on tiny shapes, each against the
+single-device call (the counterpart of ``__graft_entry__.dryrun_multichip``
+for its routes 1, 2 and 6).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from .core.dataset import Dataset
 from .core.grid import Grid
 from .ops.transform import interp_1d_linear
 
-__all__ = ["build_grid", "step"]
+__all__ = ["build_grid", "dryrun_multichip", "step"]
 
 
 def build_grid(nx: int, ny: int) -> Grid:
@@ -68,3 +73,68 @@ def step(
     ke_cols = ke.data[..., None].expand(ny, nx, nz)
     ke_on_theta = interp_1d_linear(ke_cols, theta, targets, mask_edges=False)
     return zeta.data, div.data, ke_on_theta
+
+
+def dryrun_multichip(n_shards: int, devices=None) -> None:
+    """Make an n-shard mesh and run one sharded program per ring-halo
+    route on tiny shapes, each checked against the single-device call:
+    the ring-halo diff (kernel E per block on the card), the sharded
+    cumsum, and the per-shard ``transform_multi`` (kernel F per block).
+    ``devices`` defaults to ``n_shards`` logical shards on the default
+    device; raises on a mismatch."""
+    from .core.device import get_default_device
+    from .parallel import ShardedGrid, make_mesh, shard_gridded, sharded_cumsum, sharded_op
+
+    if devices is None:
+        devices = [get_default_device()] * n_shards
+    # 2D mesh when possible: batch data-parallel axis x spatial axis
+    if n_shards % 2 == 0 and n_shards > 2:
+        mesh_axes = {"b": 2, "x": n_shards // 2}
+    else:
+        mesh_axes = {"b": 1, "x": n_shards}
+    mesh = make_mesh(mesh_axes, devices=devices)
+    dev = mesh.devices.flat[0]
+
+    n_x = 8 * mesh_axes["x"]
+    n_b = 4 * mesh_axes["b"]
+    ny = 8
+    grid = build_grid(n_x, ny)
+    rng = np.random.RandomState(0)
+    da = GriddedArray(rng.rand(n_b, ny, n_x).astype(np.float32), ("batch", "yc", "xc"),
+                      device=dev)
+    spec = {"batch": "b", "xc": "x"}
+    sharded = shard_gridded(da, mesh, spec)
+
+    def check(got, want, rtol, what):
+        np.testing.assert_allclose(np.asarray(got.data), want.values, rtol=rtol,
+                                   err_msg=what)
+
+    # route 1: spatial domain decomposition + ring halo exchange, with the
+    # batch dim data-parallel on the second mesh axis
+    d = sharded_op(grid, "diff", sharded, "X", mesh, spec, boundary="periodic")
+    check(d, grid.diff(da, "X", boundary="periodic"), 1e-5, "ring halo diff")
+
+    # route 2: distributed prefix sum with position shift
+    c = sharded_cumsum(grid, sharded, "X", mesh, spec, to="left", boundary="fill")
+    check(c, grid.cumsum(da, "X", to="left", boundary="fill"), 1e-4, "sharded cumsum")
+
+    # route 6: multi-variable vertical transform, per shard, the columns
+    # sharded across the mesh
+    ds_z = Dataset(coords={"zc": ("zc", np.arange(6, dtype=np.float32))})
+    grid_z = Grid(ds_z, coords={"Z": {"center": "zc"}}, periodic=False,
+                  autoparse_metadata=False)
+    sgrid_z = ShardedGrid(grid_z, mesh, {"col": "x"})
+    ncol = 8 * mesh_axes["x"]
+    sig = GriddedArray(np.sort(rng.rand(ncol, 6).astype(np.float32), -1), ("col", "zc"),
+                       name="sigma", device=dev)
+    tvars = [GriddedArray(rng.rand(ncol, 6).astype(np.float32), ("col", "zc"), name=f"q{i}",
+                          device=dev) for i in range(2)]
+    tgt = np.linspace(0.2, 0.8, 4).astype(np.float32)
+    outs = sgrid_z.transform_multi(
+        [shard_gridded(t, mesh, {"col": "x"}) for t in tvars], "Z", tgt,
+        target_data=shard_gridded(sig, mesh, {"col": "x"}), target_dim="sigma",
+        mask_edges=False,
+    )
+    for o, t in zip(outs, tvars):
+        check(o, grid_z.transform(t, "Z", tgt, target_data=sig, target_dim="sigma",
+                                  mask_edges=False), 1e-5, "per-shard transform_multi")

@@ -33,6 +33,7 @@ __all__ = [
     "LAUNCHES",
     "build_library",
     "find_nvcc",
+    "launch",
     "launch_counts",
     "load_library",
     "reset_launch_counts",
@@ -227,6 +228,16 @@ def check_status(name: str, status: int) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry ``name`` with ``args`` and the current stream of
+    ``device``, with ``device`` the current card (a kernel launches on the
+    current card's streams, and a tensor may live on another, as a block
+    of a sharded array does); raise on a non-zero status."""
+    with torch.cuda.device(device):
+        status = getattr(load_library(), name)(*args, stream_ptr(device))
+    check_status(name, status)
 
 
 def outputs(outs, count, shape, dtype, device):

@@ -67,12 +67,12 @@ def cgrid_diagnostics(
         zeta = torch.empty_like(u)
         div = torch.empty_like(u)
         ke = torch.empty_like(u)
-        status = build.load_library().xt_cgrid_diagnostics(
+        build.launch(
+            "xt_cgrid_diagnostics", u.device,
             u.data_ptr(), v.data_ptr(), ix.data_ptr(), iy.data_ptr(),
             zeta.data_ptr(), div.data_ptr(), ke.data_ptr(),
-            build.DTYPE_CODES[u.dtype], ny, nx, build.stream_ptr(u.device),
+            build.DTYPE_CODES[u.dtype], ny, nx,
         )
-        build.check_status("xt_cgrid_diagnostics", status)
         build.LAUNCHES["cgrid_diagnostics"] += 1
         return zeta, div, ke
 

@@ -178,14 +178,12 @@ def conservative_launch(
     e = edges.float().contiguous()
     outs = build.outputs(outs, len(phis), (cols, nb), phis[0].dtype, theta.device)
     ptrs, cs, ks, optrs = build.var_set(phis, outs)
-    lib = build.load_library()
-    status = lib.xt_conservative(
+    build.launch(
+        "xt_conservative", theta.device,
         theta.data_ptr(), ptrs, cs, ks, optrs, e.data_ptr(), len(phis),
         build.DTYPE_CODES[theta.dtype], build.DTYPE_CODES[phis[0].dtype],
         cols, n1 - 1, nb, *theta.stride(), *outs[0].stride(), int(bool(reassociate)),
-        build.stream_ptr(theta.device),
     )
-    build.check_status("xt_conservative", status)
     build.LAUNCHES["conservative" if len(phis) == 1 else "conservative_multi"] += 1
     return outs
 

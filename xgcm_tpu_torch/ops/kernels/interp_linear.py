@@ -153,14 +153,13 @@ def interp_linear_launch(
     cols, n, m, t, (t_cs, t_ms) = _check_columns(theta, (phi,), target)
     (out,) = build.outputs(None if out is None else [out], 1, (cols, m), phi.dtype,
                            phi.device)
-    lib = build.load_library()
-    status = lib.xt_interp_linear(
+    build.launch(
+        "xt_interp_linear", phi.device,
         theta.data_ptr(), phi.data_ptr(), t.data_ptr(), out.data_ptr(),
         build.DTYPE_CODES[theta.dtype], build.DTYPE_CODES[phi.dtype],
         cols, n, m, *theta.stride(), *phi.stride(), t_cs, t_ms, *out.stride(),
-        int(bool(mask_edges)), int(bool(check_flip)), build.stream_ptr(phi.device),
+        int(bool(mask_edges)), int(bool(check_flip)),
     )
-    build.check_status("xt_interp_linear", status)
     build.LAUNCHES["interp_linear"] += 1
     return out
 
@@ -183,14 +182,13 @@ def interp_linear_multi_launch(
     cols, n, m, t, (t_cs, t_ms) = _check_columns(theta, phis, target)
     outs = build.outputs(outs, len(phis), (cols, m), phis[0].dtype, phis[0].device)
     ptrs, cs, ks, optrs = build.var_set(phis, outs)
-    lib = build.load_library()
-    status = lib.xt_interp_linear_multi(
+    build.launch(
+        "xt_interp_linear_multi", theta.device,
         theta.data_ptr(), ptrs, cs, ks, optrs, t.data_ptr(), len(phis),
         build.DTYPE_CODES[theta.dtype], build.DTYPE_CODES[phis[0].dtype],
         cols, n, m, *theta.stride(), t_cs, t_ms, *outs[0].stride(),
-        int(bool(mask_edges)), int(bool(check_flip)), build.stream_ptr(theta.device),
+        int(bool(mask_edges)), int(bool(check_flip)),
     )
-    build.check_status("xt_interp_linear_multi", status)
     build.LAUNCHES["interp_linear_multi"] += 1
     return outs
 

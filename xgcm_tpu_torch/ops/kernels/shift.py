@@ -119,7 +119,6 @@ def _launch(
         math.prod(shape[:axis]), shape[axis], math.prod(shape[axis + 1:]),
         _OPS[op], _DIRECTIONS[direction], _BCS[boundary], float(fill_value),
     )
-    status = build.load_library().xt_shift(*args, build.stream_ptr(x.device))
-    build.check_status("xt_shift", status)
+    build.launch("xt_shift", x.device, *args)
     build.LAUNCHES["shift"] += 1
     return out

@@ -64,11 +64,11 @@ def vorticity(
         c = _compute_dtype(u.dtype)
         ix, iy = inv_dx.to(c).contiguous(), inv_dy.to(c).contiguous()
         zeta = torch.empty_like(u)
-        status = build.load_library().xt_vorticity(
+        build.launch(
+            "xt_vorticity", u.device,
             u.data_ptr(), v.data_ptr(), ix.data_ptr(), iy.data_ptr(), zeta.data_ptr(),
-            build.DTYPE_CODES[u.dtype], ny, nx, build.stream_ptr(u.device),
+            build.DTYPE_CODES[u.dtype], ny, nx,
         )
-        build.check_status("xt_vorticity", status)
         build.LAUNCHES["vorticity"] += 1
         return zeta
 

@@ -1,0 +1,20 @@
+"""The sharded layer, single-controller: one process holds a :class:`Mesh`
+of ``torch.device`` (a device may repeat: logical shards on one card) and
+every sharded array as a :class:`ShardedTensor` of blocks; a collective is
+a copy between blocks (:mod:`.collectives`).  The face-sharded route and
+``apply_many`` are not ported yet."""
+
+from .collectives import all_gather, ppermute, psum, shard_map  # noqa: F401
+from .diagnostics import sharded_cgrid_diagnostics  # noqa: F401
+from .halo import ring_halo_pad, sharded_cumsum, sharded_op  # noqa: F401
+from .mesh import (  # noqa: F401
+    Mesh,
+    PartitionSpec,
+    make_mesh,
+    partition_spec,
+    replicate,
+    shard_gridded,
+)
+from .sharded_grid import ShardedGrid  # noqa: F401
+from .sharded_tensor import ShardedTensor, assembly_count, reset_assembly_count  # noqa: F401
+from .sharded_ufunc import sharded_apply_as_grid_ufunc  # noqa: F401
