@@ -40,7 +40,12 @@ face, 50 levels, float32):
   a block), the sharded C-grid diagnostics on a 2 x 2 mesh and the
   per-shard transforms (C, G, F, H a block), each against the
   single-device call, with its collectives held to the JAX package's
-  budget, its time beside the single-device time and the profiler's split.
+  budget, its time beside the single-device time and the profiler's split;
+  then the face-sharded route at one LLC4320 level: the face analysis
+  (tracer gradients, vorticity, divergence through ``diff_2d_vector``, the
+  2-D vector interpolation) with the 13 faces over four shards (16
+  with the dummy faces, kernel E a block an op), and a vector diff and a
+  Y cumsum on a face x rows mesh of 2 x 2.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; the script checks that every kernel of the path launched and that
@@ -2155,6 +2160,13 @@ RING_BUDGET = {"periodic": {"ppermute": 1}, "fill": {"ppermute": 1},
                "extend": {"ppermute": 1, "all_gather": 2}}
 CUMSUM_BUDGET = {"fill": {"ppermute": 1, "all_gather": 1},
                  "periodic": {"ppermute": 1, "all_gather": 2}}
+# the face-sharded route on a face-only mesh: one all_gather of the strip
+# pool per scalar op, two per vector op (the partner's pool too); on a
+# face x rows mesh a psum first and the rows' ring exchange of the pre-pad
+# (tests/test_torch_face_sharded_ops.py holds each to JAX's jaxpr)
+FACE_BUDGET = {"scalar": {"all_gather": 1}, "vector": {"all_gather": 2}}
+FACE_ROWS_VECTOR_BUDGET = {"psum": 2, "all_gather": 2, "ppermute": 2}
+FACE_ROWS_CUMSUM_BUDGET = {"psum": 1, "all_gather": 2, "ppermute": 2}
 # tests/test_sharding.py holds the sharded cumsum to rtol 1e-12 in float64;
 # scaled by the ratio of the float32 and float64 units in the last place
 # (2^-23 / 2^-52), about 5.4e-4
@@ -2465,12 +2477,150 @@ def sharded_phase(xtt, build, gen, dev, card, nz=NZ, ny=NY, nx=NX, timing=True):
     del ins
     torch.cuda.empty_cache()
 
+    face_sharded_part(xtt, build, gen, dev, card, timed, n=nx)
+
     if not timing:
         log("phase 11: times not measured (CUDA events time one card's stream)")
     for name, s_ms, one_ms_, split in times:
         log(f"time phase 11 {name}: sharded {s_ms:.4f} ms, single-device {one_ms_:.4f} ms "
             f"(CUDA events); sharded split: {split} [{card}]")
     log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+
+def face_analysis_2d(g, xtt, th, u, v):
+    """Phase 8's face analysis with the divergence through the vector
+    wrapper ``diff_2d_vector`` (which moves components to the cell centres
+    only, so the vorticity keeps its two vector diffs onto the corners) and
+    the interpolation through ``interp_2d_vector``; eight E ops, as
+    :func:`face_analysis`."""
+    t = xtt.GriddedArray(th, ("face", "y", "x"), name="theta")
+    gu = xtt.GriddedArray(u, ("face", "y", "xl"), name="u")
+    gv = xtt.GriddedArray(v, ("face", "yl", "x"), name="v")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        dvg = g.diff_2d_vector({"X": gu, "Y": gv})
+        vec = g.interp_2d_vector({"X": gu, "Y": gv}, to="center")
+    zeta = (g.diff({"X": gv}, "X", other_component={"Y": gu})
+            - g.diff({"Y": gu}, "Y", other_component={"X": gv}))
+    return {"dtheta_dx": g.diff(t, "X"), "dtheta_dy": g.diff(t, "Y"), "zeta": zeta,
+            "div": dvg["X"] + dvg["Y"], "u_c": vec["X"], "v_c": vec["Y"]}
+
+
+def face_ring_grid(xtt, n):
+    """Four n x n faces joined along X in a ring: a face grid with no
+    axis-swapping connection, on which the shifting cumsum is defined."""
+    ds = xtt.Dataset(coords={
+        "x": ("x", np.arange(n) + 0.5, {"axis": "X"}),
+        "xl": ("xl", np.arange(n) * 1.0, {"axis": "X", "c_grid_axis_shift": -0.5}),
+        "y": ("y", np.arange(n) + 0.5, {"axis": "Y"}),
+        "yl": ("yl", np.arange(n) * 1.0, {"axis": "Y", "c_grid_axis_shift": -0.5}),
+        "face": ("face", np.arange(4)),
+    })
+    fc = {"face": {i: {"X": (((i - 1) % 4, "X", False), ((i + 1) % 4, "X", False))}
+                   for i in range(4)}}
+    return xtt.Grid(ds, face_connections=fc)
+
+
+def same_faces(label, got, want):
+    """A face-sharded result (the real faces, assembled) against the
+    single-device one: the same dims and shape, equal values with NaN and
+    infinities in the same places, face by face."""
+    if got.dims != want.dims or tuple(got.data.shape) != tuple(want.data.shape):
+        raise AssertionError(f"{label}: {got.dims} {tuple(got.data.shape)}, single-device "
+                             f"{want.dims} {tuple(want.data.shape)}")
+    for f, (a, b) in enumerate(zip(got.data.unbind(-3), want.data.unbind(-3))):
+        if not same_values(a, b):
+            raise AssertionError(f"{label}: face {f} differs from the single-device result")
+
+
+def face_sharded_part(xtt, build, gen, dev, card, timed, n=NX):
+    """Phase 11's face-sharded route: phase 8's inputs (one LLC level of 13
+    n x n f32 faces, N(0, 1) with NaN and +-inf on face-edge cells) with the
+    face dim over four shards (16 faces with the dummy ones), and a face x
+    rows mesh of 2 x 2; each result against the single-device call."""
+    from xgcm_tpu_torch import parallel as par
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _, lgrid = xtt.grids.llc_grid(n=n)
+    th, lu, lv = (edge_nonfinite(torch.randn((N_FACES, n, n), generator=gen, device=dev))
+                  for _ in range(3))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    single = face_analysis(lgrid, xtt, th, lu, lv)
+    mesh = par.make_mesh({"f": N_SHARDS}, devices=phase_devices(dev, N_SHARDS))
+    sgf = par.ShardedGrid(lgrid, mesh, {"face": "f"})
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, launches, cc = counted_call(build, lambda: face_analysis_2d(sgf, xtt, th, lu, lv))
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    want_cc = {"all_gather": 2 * FACE_BUDGET["scalar"]["all_gather"]
+               + 6 * FACE_BUDGET["vector"]["all_gather"]}
+    expect_counts("face-sharded face analysis", launches, cc,
+                  {"face_shift": 8 * N_SHARDS, "shift": 0}, want_cc)
+    for name, got in out.items():
+        same_faces(f"face-sharded {name}", got, single[name])
+    del out
+    fpd = -(-N_FACES // N_SHARDS)
+    log(f"phase 11: face-sharded face analysis ({N_FACES} x {n} x {n} f32, {fpd} faces a shard "
+        f"with {fpd * N_SHARDS - N_FACES} dummy faces; dtheta/dx, dtheta/dy, zeta, div "
+        f"through diff_2d_vector, the vector interp) == phase 8's single-device face analysis "
+        f"value for value (NaN and infinities in the same places); kernel E "
+        f"{launches['face_shift']} launches (8 ops x {N_SHARDS} blocks), kernel A none; "
+        f"collectives {cc} (the JAX budget); peak device memory {peak:.2f} GB above the "
+        f"inputs and the single-device results [{card}]")
+    del single
+    timed(f"face analysis (faces over {N_SHARDS})", lambda: face_analysis_2d(sgf, xtt, th, lu, lv),
+          lambda: face_analysis(lgrid, xtt, th, lu, lv))
+
+    # the face x rows decomposition: 7 faces a shard (one dummy), the rows
+    # of each face in two halves
+    mesh2 = par.make_mesh({"f": 2, "y": 2}, devices=phase_devices(dev, 4))
+    sg2 = par.ShardedGrid(lgrid, mesh2, {"face": "f", "y": "y", "yl": "y"})
+    gu = xtt.GriddedArray(lu, ("face", "y", "xl"), name="u")
+    gv = xtt.GriddedArray(lv, ("face", "yl", "x"), name="v")
+
+    def vector_diff(g):
+        return g.diff({"X": gu}, "X", boundary="fill", other_component={"Y": gv})
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, launches, cc = counted_call(build, lambda: vector_diff(sg2))
+    expect_counts("face x rows vector diff", launches, cc, {"face_shift": 4, "shift": 0},
+                  FACE_ROWS_VECTOR_BUDGET)
+    same_faces("face x rows vector diff", out, vector_diff(lgrid))
+    log(f"phase 11: face x rows (2 x 2) vector diff X == the single-device diff value for "
+        f"value; kernel E 4 launches; collectives {cc} (the JAX budget); peak device memory "
+        f"{(torch.cuda.max_memory_allocated(dev) - base) / 1e9:.2f} GB above the inputs [{card}]")
+    del out
+    timed("face x rows (2 x 2) vector diff X", lambda: vector_diff(sg2),
+          lambda: vector_diff(lgrid))
+    del th, lu, lv, gu, gv
+    torch.cuda.empty_cache()
+
+    rgrid = face_ring_grid(xtt, n)
+    # positive values, so that every prefix sum is far from 0 (rtol alone)
+    q = xtt.GriddedArray(torch.rand((4, n, n), generator=gen, device=dev).add_(20.0),
+                         ("face", "y", "x"), name="q")
+
+    def face_cumsum():
+        return par.sharded_face_cumsum(rgrid, q, "Y", mesh2, "f", "X", "Y", to="left",
+                                       boundary="fill", interior_mesh_axis="y")
+
+    out, launches, cc = counted_call(build, face_cumsum)
+    expect_counts("face x rows cumsum Y", launches, cc, {"face_shift": 0, "shift": 0},
+                  FACE_ROWS_CUMSUM_BUDGET)
+    want = rgrid.cumsum(q, "Y", to="left", boundary="fill")
+    got = out.with_data(out.data.full_tensor())
+    if got.dims != want.dims or not bool(torch.isclose(got.data, want.data, rtol=CUMSUM_RTOL,
+                                                       atol=0.0).all()):
+        raise AssertionError("face x rows cumsum Y: differs from the single-device cumsum")
+    log(f"phase 11: face x rows (2 x 2) cumsum Y to=left on a 4-face ring ({n} x {n} faces) == "
+        f"the single-device cumsum within rtol {CUMSUM_RTOL:.2e}; collectives {cc} (the JAX "
+        f"budget) [{card}]")
+    del out, got, want
+    timed("face x rows (2 x 2) cumsum Y", face_cumsum,
+          lambda: rgrid.cumsum(q, "Y", to="left", boundary="fill"))
+    del q
+    torch.cuda.empty_cache()
 
 
 def run_sharded_phase(seed):

@@ -39,6 +39,7 @@ import torch
 import chip_smoke
 import xgcm_tpu_torch as xtt
 from tests.torch_parity import assert_close
+from xgcm_tpu_torch import parallel as par
 from xgcm_tpu_torch.core import device as port_device
 from xgcm_tpu_torch.entry import step
 from xgcm_tpu_torch.ops.kernels import build
@@ -687,6 +688,38 @@ def test_sharded_layer_on_card(cuda):
     nz, ny, nx = chip_smoke.SHARDED_SMALL
     chip_smoke.sharded_phase(xtt, build, g, torch.device("cuda", 0), "test", nz=nz, ny=ny,
                              nx=nx, timing=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_axes", [{"f": 4}, {"f": 2, "r": 2}])
+def test_face_sharded_diff_on_card(cuda, mesh_axes):
+    """A face-sharded diff and vector diff of a 13-face LLC grid on logical
+    shards of the card (16 faces with the dummy ones): kernel E once per
+    block per op, no kernel A, every block on the card, and the single-
+    device result on the card value for value (under periodic, fill and
+    extend: in float32 an extrapolated face edge rounds differently on the
+    two routes, in JAX as in the port)."""
+    _, grid = xtt.grids.llc_grid(n=24)
+    g = torch.Generator(device=cuda).manual_seed(41)
+    th, u, v = (chip_smoke.edge_nonfinite(torch.randn((13, 24, 24), generator=g, device=cuda))
+                for _ in range(3))
+    n = int(np.prod(list(mesh_axes.values())))
+    spec = {"face": "f", "y": "r", "yl": "r"} if "r" in mesh_axes else {"face": "f"}
+    sg = par.ShardedGrid(grid, par.make_mesh(mesh_axes, devices=[cuda] * n), spec)
+    t = xtt.GriddedArray(th, ("face", "y", "x"))
+    gu = xtt.GriddedArray(u, ("face", "y", "xl"))
+    gv = xtt.GriddedArray(v, ("face", "yl", "x"))
+    for call in (lambda g_: g_.diff(t, "X", boundary="fill"),
+                 lambda g_: g_.diff(t, "Y", boundary="extend"),
+                 lambda g_: g_.diff({"X": gu}, "X", other_component={"Y": gv})):
+        build.reset_launch_counts()
+        got = call(sg)
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        assert counts["face_shift"] == n and counts["shift"] == 0, counts
+        want = call(grid)
+        assert got.dims == want.dims and got.data.device.type == "cuda"
+        assert chip_smoke.same_values(got.data, want.data)
 
 
 @pytest.mark.cuda

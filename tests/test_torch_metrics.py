@@ -268,20 +268,19 @@ def test_metric_weighted_ops(grid_type, op, weighted):
 def test_calculus_dtypes_follow_jax_promotion(data_dtype, metric_dtype):
     """f32 data times an f64 metric is f64, as in JAX; integer data and
     metrics promote as JAX x64's weakly typed fills do.  Bool data has no
-    difference: derivative raises in both packages."""
+    difference: derivative raises TypeError in both packages."""
     coords = {"xc": ("xc", np.arange(6) + 0.5), "xg": ("xg", np.arange(6) * 1.0),
               "dxc": (("xc",), (np.arange(6) + 1).astype(metric_dtype)),
               "dxg": (("xg",), (np.arange(6) + 2).astype(metric_dtype))}
     a = (np.random.RandomState(4).rand(3, 6) * 5).astype(data_dtype)
     out = []
-    for pkg, make, diff_error in ((xgcm_tpu, lambda x: x, TypeError),
-                                  (xtt, torch.as_tensor, RuntimeError)):
+    for pkg, make in ((xgcm_tpu, lambda x: x), (xtt, torch.as_tensor)):
         g = pkg.Grid(pkg.Dataset(coords=coords), coords={"X": {"center": "xc", "left": "xg"}},
                      metrics={("X",): ["dxc", "dxg"]}, autoparse_metadata=False)
         da = pkg.GriddedArray(make(a), ("y", "xc"))
         out.append([g.integrate(da, "X"), g.average(da, "X"), g.cumint(da, "X")])
         if data_dtype == np.bool_:
-            with pytest.raises(diff_error):
+            with pytest.raises(TypeError):
                 g.derivative(da, "X")
         else:
             out[-1].append(g.derivative(da, "X"))

@@ -354,6 +354,9 @@ def test_metrics_delegation_and_coords_for():
 
 
 def test_vector_wrappers_on_face_sharded_grid_are_refused():
+    """test_sharded_grid_surface.py's vector wrappers on a face x rows
+    sharded cubed sphere: each component takes the face-sharded route and
+    equals JAX's sharded wrapper within the JAX test's rtol = 1e-12."""
     ds, fc = cubed_sphere_dataset(n=N)
     tds = xtt.from_numpy_dataset(ds)
     grid = xtt.Grid(tds, face_connections=fc)
@@ -361,6 +364,23 @@ def test_vector_wrappers_on_face_sharded_grid_are_refused():
     sg = tpar.ShardedGrid(grid, mesh, {"face": "f", "y": "ym", "yl": "ym"})
     svec = {"X": tpar.shard_gridded(tds["u"], mesh, {"face": "f", "y": "ym"}),
             "Y": tpar.shard_gridded(tds["v"], mesh, {"face": "f", "yl": "ym"})}
-    with pytest.warns(DeprecationWarning), pytest.raises(NotImplementedError,
-                                                         match="face-sharded route"):
-        sg.interp_2d_vector(svec, boundary="fill")
+    jgrid = xgcm_tpu.Grid(ds, face_connections=fc)
+    jmesh = jpar.make_mesh({"f": 2, "ym": 4}, devices=jax.devices()[:8])
+    jsg = jpar.ShardedGrid(jgrid, jmesh, {"face": "f", "y": "ym", "yl": "ym"})
+
+    def jax_wrapper(u, v):
+        out = jsg.interp_2d_vector({"X": xgcm_tpu.GriddedArray(u, ds["u"].dims),
+                                    "Y": xgcm_tpu.GriddedArray(v, ds["v"].dims)},
+                                   boundary="fill")
+        return {k: o.data for k, o in out.items()}
+
+    with pytest.warns(DeprecationWarning):
+        want = jax.jit(jax_wrapper)(ds["u"].data, ds["v"].data)
+    with pytest.warns(DeprecationWarning):
+        expected = jgrid.interp_2d_vector({"X": ds["u"], "Y": ds["v"]}, boundary="fill")
+    with pytest.warns(DeprecationWarning):
+        out = sg.interp_2d_vector(svec, boundary="fill")
+    for k in expected:
+        assert out[k].dims == expected[k].dims
+        assert_close(out[k], np.asarray(want[k]), rtol=1e-12)
+        assert_close(out[k], expected[k], rtol=1e-12)

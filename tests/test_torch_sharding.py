@@ -205,26 +205,39 @@ def test_single_shard_mesh_periodic_halo():
 
 
 def test_face_sharded_ops_are_refused():
-    """The face-sharded route is not ported: a face-mapped op along a
-    face-connected axis raises, and assembles nothing on the way."""
+    """The face-sharded route through every entry point that reaches it:
+    ``ShardedGrid`` ops and ``apply_as_grid_ufunc`` and ``sharded_op`` on
+    a face-mapped cubed sphere equal JAX's ``sharded_face_op`` value for
+    value, assembling nothing on the way.  What JAX refuses stays refused:
+    the shifting cumsum across axis-swapping connections, and
+    ``apply_many`` (not ported yet)."""
     ds, fc = cubed_sphere_dataset(n=8)
     tds = xtt.from_numpy_dataset(ds)
     grid = xtt.Grid(tds, face_connections=fc, periodic=False)
-    mesh = _tmesh({"f": 6})
-    da = xtt.GriddedArray(np.random.rand(6, 8, 8), ("face", "y", "x"))
+    jgrid = xgcm_tpu.Grid(ds, face_connections=fc, periodic=False)
+    mesh, jmesh = _tmesh({"f": 6}), _jmesh({"f": 6})
+    a = np.random.RandomState(11).rand(6, 8, 8)
+    da = xtt.GriddedArray(a, ("face", "y", "x"))
     sg = tpar.ShardedGrid(grid, mesh, {"face": "f"})
     sh = sg.shard(da)
     sharded_tensor.reset_assembly_count()
-    for op in ("diff", "cumsum"):
-        with pytest.raises(NotImplementedError, match="face-sharded route"):
-            getattr(sg, op)(sh, "X", boundary="fill")
+    want = jax.jit(lambda x: jpar.sharded_face_op(
+        jgrid, "diff", xgcm_tpu.GriddedArray(x, ("face", "y", "x")), "X", jmesh, "f", "X", "Y",
+        boundary="fill").data)(a)
+    for got in (sg.diff(sh, "X", boundary="fill"),
+                tpar.sharded_op(grid, "diff", sh, "X", mesh, {"face": "f"}, boundary="fill")):
+        assert isinstance(got.data, tpar.ShardedTensor)
+        np.testing.assert_array_equal(to_numpy(got.data.full_tensor()), np.asarray(want))
+    got = sg.apply_as_grid_ufunc(lambda b: b, sh, axis=[("X",)],
+                                 signature="(X:center)->(X:center)")
+    np.testing.assert_array_equal(to_numpy(got.data.full_tensor()), a)
+    sharded_tensor.reset_assembly_count()
+    for g in (sg, jpar.ShardedGrid(jgrid, jmesh, {"face": "f"})):
+        with pytest.raises(NotImplementedError, match="swap"):
+            g.cumsum(sh if g is sg else xgcm_tpu.GriddedArray(a, ("face", "y", "x")), "X",
+                     boundary="fill")
     with pytest.raises(NotImplementedError, match="apply_many"):
         sg.apply_many([])
-    with pytest.raises(NotImplementedError, match="face-sharded route"):
-        sg.apply_as_grid_ufunc(lambda a: a, sh, axis=[("X",)],
-                               signature="(X:center)->(X:center)")
-    with pytest.raises(NotImplementedError, match="face_sharded"):
-        tpar.sharded_op(grid, "diff", sh, "X", mesh, {"face": "f"})
     assert sharded_tensor.assembly_count() == 0
 
 

@@ -185,7 +185,11 @@ class GriddedArray:
         )
 
     def flip(self, dim: str) -> "GriddedArray":
-        return self.with_data(torch.flip(as_tensor(self.data), (self.get_axis_num(dim),)))
+        from ..ops.stencils import wrapping
+
+        # torch flips no uint16/32/64: move their bits as signed ints
+        data = as_tensor(self.data)
+        return self.with_data(torch.flip(wrapping(data), (self.get_axis_num(dim),)).view(data.dtype))
 
     def move_dims_last(self, dims: Sequence[str]) -> "GriddedArray":
         """Transpose so that `dims` appear, in order, as the trailing axes."""
@@ -196,13 +200,14 @@ class GriddedArray:
     def _binop(self, other, op):
         if isinstance(other, GriddedArray):
             a, b, dims = _broadcast_align(self, other)
+            a, b = _promoted(a, b, op)
             return GriddedArray(op(a, b), dims, name=self.name)
-        a = as_tensor(self.data)
-        return self.with_data(op(a, _operand(other, a.device)))
+        a, b = _promoted(as_tensor(self.data), other, op)
+        return self.with_data(op(a, _operand(b, a.device)))
 
     def _rbinop(self, other, op):
-        a = as_tensor(self.data)
-        return self.with_data(op(_operand(other, a.device), a))
+        a, b = _promoted(as_tensor(self.data), other, op)
+        return self.with_data(op(_operand(b, a.device), a))
 
     def __add__(self, other):
         return self._binop(other, torch.add)
@@ -277,7 +282,8 @@ class GriddedArray:
         else:
             a = as_tensor(self.data)
             c, dims = _operand(cond, a.device), self.dims
-        o = _operand(other.data if isinstance(other, GriddedArray) else other, a.device)
+        a, other = _promoted(a, other.data if isinstance(other, GriddedArray) else other)
+        o = _operand(other, a.device)
         if not isinstance(o, torch.Tensor):
             o = torch.tensor(o, dtype=torch.result_type(a, o), device=a.device)
         return GriddedArray(
@@ -368,6 +374,28 @@ def _torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def _promoted(a, b, op=None):
+    """(a, b) with the integer or bool tensor among them in float64 where
+    JAX (x64) computes in float64 and torch would take its default dtype,
+    float32: against a Python float (complex128 against a Python complex),
+    and in a true division of integer or bool operands that promote to a
+    64-bit integer (narrower ones divide in float32 in both).  A float
+    tensor keeps its dtype against a Python float, as against a weakly
+    typed JAX scalar."""
+
+    def exact(x):
+        return isinstance(x, torch.Tensor) and not (x.is_floating_point() or x.is_complex())
+
+    scalar = b if isinstance(b, (float, complex)) and not isinstance(b, bool) else None
+    if scalar is not None:
+        wide = torch.complex128 if isinstance(scalar, complex) else torch.float64
+        return (a.to(wide) if exact(a) else a), b
+    if (op is torch.true_divide and exact(a) and (exact(b) or isinstance(b, (bool, int)))
+            and torch.result_type(a, b) in (torch.int64, torch.uint64)):
+        return a.to(torch.float64), b
+    return a, b
 
 
 def _operand(x, device):

@@ -582,10 +582,6 @@ class Grid:
                 ((_, partner),) = other_component.items()
             # face-less grids: basic BCs ignore the partner, so the
             # component behaves exactly like a scalar
-        data = array.data
-        if not (data.is_floating_point() if isinstance(data, torch.Tensor)
-                else np.issubdtype(data.dtype, np.floating)):
-            return None  # integer and bool inputs take the generic engine
         if set(call_kwargs) - {"boundary", "fill_value"}:
             return None
         from_pos = signature_1d.in_ax_positions[0][0]
@@ -602,6 +598,16 @@ class Grid:
         )[ax_name]
         if boundary not in ("periodic", "fill", "extend", "extrapolate", None):
             return None
+        data = as_tensor(array.data)
+        if not (data.is_floating_point() or data.is_complex()):
+            if boundary != "extrapolate":
+                return None  # integer and bool inputs take the generic engine
+            # the JAX package's fused path extrapolates as 2.0 * x - inward,
+            # so integer and bool data come out float64 (x64): the same
+            # values as the float64 path on the converted data
+            array = array.with_data(data.to(torch.float64))
+            if partner is not None:
+                partner = partner.with_data(as_tensor(partner.data).to(torch.float64))
 
         dim = ax.coords[from_pos]
         out_dim = ax.coords[to_pos]

@@ -26,6 +26,7 @@ from typing import TYPE_CHECKING, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
+from ..ops.stencils import wrapping
 from .dataarray import GriddedArray, as_tensor
 
 if TYPE_CHECKING:
@@ -44,7 +45,12 @@ BOUNDARY_TO_PAD_MODE = {
 
 def _extrapolate_pad(data: torch.Tensor, axnum: int, widths: Tuple[int, int]):
     """Linear extrapolation padding: value at k cells beyond an edge is
-    edge + k * (edge - next-inward)."""
+    edge + k * (edge - next-inward), in the data's dtype (uint16/32/64
+    wrap as JAX's do, through :func:`~xgcm_tpu_torch.ops.stencils.wrapping`)."""
+    dtype = data.dtype
+    if dtype == torch.bool:
+        raise TypeError("extrapolate is not defined for boolean data (as jnp.subtract)")
+    data = wrapping(data)
     lw, rw = widths
     shape = [1] * data.ndim
     parts = []
@@ -62,7 +68,7 @@ def _extrapolate_pad(data: torch.Tensor, axnum: int, widths: Tuple[int, int]):
         shape[axnum] = rw
         ks = torch.arange(1, rw + 1, device=data.device).to(data.dtype).reshape(shape)
         parts.append(xn + ks * (xn - xm))
-    return torch.cat(parts, dim=axnum)
+    return torch.cat(parts, dim=axnum).view(dtype)
 
 
 def _pad_axis(data: torch.Tensor, axnum: int, widths, mode: str, fv: float):
@@ -72,6 +78,10 @@ def _pad_axis(data: torch.Tensor, axnum: int, widths, mode: str, fv: float):
     n = data.shape[axnum]
     if mode == "extrapolate":
         return _extrapolate_pad(data, axnum, widths)
+    dtype = data.dtype
+    if mode == "wrap":
+        # index_select takes no uint16/32/64: move their bits as signed ints
+        data = wrapping(data)
     parts = []
     for width, side in ((lw, "lo"), (rw, "hi")):
         if not width:
@@ -95,7 +105,7 @@ def _pad_axis(data: torch.Tensor, axnum: int, widths, mode: str, fv: float):
             raise ValueError(f"unknown pad mode {mode!r}")
         parts.append(reps)
     lo, hi = parts
-    return torch.cat([p for p in (lo, data, hi) if p is not None], dim=axnum)
+    return torch.cat([p for p in (lo, data, hi) if p is not None], dim=axnum).view(dtype)
 
 
 def _pad_basic(

@@ -2,9 +2,11 @@
 halo strips come from.
 
 The port's own copy of ``FaceHaloPlan`` and ``compile_face_plan`` from
-:mod:`xgcm_tpu.parallel.face_sharded`.  The plan is plain numpy, built once
-per (grid, x axis, y axis); the fused face path (``ops/fused.py``) turns it
-into device tensors once per device and gathers the halo strips with it.
+:mod:`xgcm_tpu.parallel.face_sharded`, and the one plan compiler of the
+port: the fused face path (``ops/fused.py``) turns the plan into device
+tensors once per device and gathers the halo strips with it; the
+face-sharded route (``parallel/face_sharded.py``) reads it on the host,
+per face and side, with rows for dummy faces beyond the grid's.
 
 Side codes: 0 = X-left, 1 = X-right, 2 = Y-left, 3 = Y-right.  The rules
 reproduce the halo assembly of ``core/padding._pad_face_connections``:
@@ -19,7 +21,7 @@ reproduce the halo assembly of ``core/padding._pad_face_connections``:
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 
@@ -43,17 +45,21 @@ class FaceHaloPlan:
         self.swap = np.zeros(shape, dtype=bool)
 
 
-def compile_face_plan(grid: "Grid", x_axis: str, y_axis: str) -> FaceHaloPlan:
+def compile_face_plan(grid: "Grid", x_axis: str, y_axis: str,
+                      n_faces_total: Optional[int] = None) -> FaceHaloPlan:
     """Compile the face-connection table into a static per-edge plan.
 
     ``x_axis``/``y_axis`` name the two grid axes spanning each face (the
     side codes 0/1 belong to ``x_axis``, 2/3 to ``y_axis``); a connection
-    along any other axis raises ``KeyError``.
+    along any other axis raises ``KeyError``.  ``n_faces_total`` sizes the
+    plan beyond the grid's face count: the extra rows are unconnected dummy
+    faces (the face-sharded route rounds the face dim up to a multiple of
+    its mesh axis with them).
     """
     facedim = grid._facedim
     connections = grid._face_connections[facedim]
     n_faces = grid._ds.dims[facedim]
-    plan = FaceHaloPlan(n_faces)
+    plan = FaceHaloPlan(max(n_faces, n_faces_total or 0))
 
     axis_code = {x_axis: 0, y_axis: 1}
     for f in range(n_faces):

@@ -6,10 +6,10 @@ divergence and kinetic energy through the Grid API, then the kinetic energy
 remapped onto theta surfaces per column.  On CUDA tensors it runs the shift
 kernel (four diffs and two interps) and the linear-interpolation kernel.
 
-``dryrun_multichip(n_shards)`` runs one sharded program per ring-halo route
-of :mod:`xgcm_tpu_torch.parallel` on tiny shapes, each against the
+``dryrun_multichip(n_shards)`` runs one sharded program per route of
+:mod:`xgcm_tpu_torch.parallel` on tiny shapes, each against the
 single-device call (the counterpart of ``__graft_entry__.dryrun_multichip``
-for its routes 1, 2 and 6).
+for its routes 1, 2, 3, 4 and 6).
 """
 
 from __future__ import annotations
@@ -76,14 +76,23 @@ def step(
 
 
 def dryrun_multichip(n_shards: int, devices=None) -> None:
-    """Make an n-shard mesh and run one sharded program per ring-halo
-    route on tiny shapes, each checked against the single-device call:
-    the ring-halo diff (kernel E per block on the card), the sharded
-    cumsum, and the per-shard ``transform_multi`` (kernel F per block).
+    """Make an n-shard mesh and run one sharded program per route on tiny
+    shapes, each checked against the single-device call: the ring-halo diff
+    (kernel E per block on the card), the sharded cumsum, the face-sharded
+    vector diff and the dummy-padded 13-face LLC diff (kernel E per block),
+    and the per-shard ``transform_multi`` (kernel F per block).
     ``devices`` defaults to ``n_shards`` logical shards on the default
     device; raises on a mismatch."""
     from .core.device import get_default_device
-    from .parallel import ShardedGrid, make_mesh, shard_gridded, sharded_cumsum, sharded_op
+    from .grids import cubed_sphere_grid, llc_grid
+    from .parallel import (
+        ShardedGrid,
+        make_mesh,
+        shard_gridded,
+        sharded_cumsum,
+        sharded_face_op,
+        sharded_op,
+    )
 
     if devices is None:
         devices = [get_default_device()] * n_shards
@@ -106,8 +115,7 @@ def dryrun_multichip(n_shards: int, devices=None) -> None:
     sharded = shard_gridded(da, mesh, spec)
 
     def check(got, want, rtol, what):
-        np.testing.assert_allclose(np.asarray(got.data), want.values, rtol=rtol,
-                                   err_msg=what)
+        np.testing.assert_allclose(got.values, want.values, rtol=rtol, err_msg=what)
 
     # route 1: spatial domain decomposition + ring halo exchange, with the
     # batch dim data-parallel on the second mesh axis
@@ -117,6 +125,41 @@ def dryrun_multichip(n_shards: int, devices=None) -> None:
     # route 2: distributed prefix sum with position shift
     c = sharded_cumsum(grid, sharded, "X", mesh, spec, to="left", boundary="fill")
     check(c, grid.cumsum(da, "X", to="left", boundary="fill"), 1e-4, "sharded cumsum")
+
+    # route 3: the face-sharded topology.  On 8+ shards the face x rows x
+    # cols decomposition with a vector diff (cross-face halos, ring halos
+    # on both in-face dims, partner strips, the rotate/flip/sign rules);
+    # on fewer, faces-per-shard blocks, dummy-padded where 6 % n != 0
+    if n_shards >= 8:
+        face_mesh = make_mesh({"f3": 2, "r3": 2, "c3": 2}, devices=devices)
+        face_spec = {"face": "f3", "y": "r3", "yl": "r3", "x": "c3", "xl": "c3"}
+        shard_spec = {"face": "f3", "y": "r3", "x": "c3"}
+    else:
+        nf = min(6, max(1, n_shards))
+        face_mesh = make_mesh({"f3": nf}, devices=devices)
+        face_spec = shard_spec = {"face": "f3"}
+    _, grid_cs = cubed_sphere_grid(n=8)
+    sgrid_cs = ShardedGrid(grid_cs, face_mesh, face_spec)
+    u4 = GriddedArray(rng.rand(6, 8, 8).astype(np.float32), ("face", "y", "x"), name="u",
+                      device=dev)
+    v4 = GriddedArray(rng.rand(6, 8, 8).astype(np.float32), ("face", "y", "x"), name="v",
+                      device=dev)
+    u4s = shard_gridded(u4, face_mesh, shard_spec, uneven_ok=("face",))
+    v4s = shard_gridded(v4, face_mesh, shard_spec, uneven_ok=("face",))
+    vec = sgrid_cs.diff({"X": u4s}, "X", other_component={"Y": v4s}, boundary="fill")
+    check(vec, grid_cs.diff({"X": u4}, "X", other_component={"Y": v4}, boundary="fill"), 1e-5,
+          "face-sharded vector diff")
+
+    # route 4: the 13-face LLC over every shard, dummy-padded where
+    # 13 % n_shards != 0
+    _, grid_llc = llc_grid(n=8)
+    llc_mesh = make_mesh({"f": n_shards}, devices=devices)
+    llc_field = GriddedArray(rng.rand(13, 8, 8).astype(np.float32), ("face", "y", "x"),
+                             device=dev)
+    llc_out = sharded_face_op(grid_llc, "diff", llc_field, "Y", llc_mesh, "f", "X", "Y",
+                              boundary="fill")
+    check(llc_out, grid_llc.diff(llc_field, "Y", boundary="fill"), 1e-5,
+          "LLC-13 dummy-padded diff")
 
     # route 6: multi-variable vertical transform, per shard, the columns
     # sharded across the mesh

@@ -22,27 +22,78 @@ __all__ = [
     "interp_forward",
     "pairwise_min",
     "pairwise_max",
+    "wrapping",
 ]
 
 # THE single home for the 2-point stencil semantics.  ``lo`` is the
 # lower-index neighbour, ``hi`` the higher-index one; the engine kernels
 # below and the fused shift path (ops/fused.py and the shift kernel's plain
 # version) phrase their operands in those terms.
+#
+# Torch adds, subtracts and orders uint16, uint32 and uint64 on no device,
+# where JAX takes every unsigned width.  Those dtypes compute in the signed
+# integers of their width (the same bits, see :func:`wrapping`): sums and
+# differences wrap modulo 2^bits as the unsigned ones do, and min/max order
+# them with the sign bit flipped, so values at or above 2^(bits-1) keep
+# their unsigned order.
+_UNSIGNED_WIDE = (torch.uint16, torch.uint32, torch.uint64)
+_SIGNED_OF = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def wrapping(t: torch.Tensor) -> torch.Tensor:
+    """``t`` viewed as the signed integers of its width when it is a
+    uint16/32/64 tensor (the same bits: adds, subtracts and multiplies
+    wrap as the unsigned ones do), else ``t`` itself.  ``.view(dtype)``
+    of the result's original dtype undoes it."""
+    signed = _SIGNED_OF.get(t.dtype)
+    return t if signed is None else t.view(signed)
+
+
+def _wide_unsigned(lo, hi) -> bool:
+    return lo.dtype in _UNSIGNED_WIDE and hi.dtype == lo.dtype
+
+
+def _diff(lo, hi):
+    """hi - lo; unsigned differences wrap modulo 2^bits, as in JAX, and a
+    difference of two boolean arrays raises TypeError, as ``jnp.subtract``
+    does."""
+    if lo.dtype == torch.bool and hi.dtype == torch.bool:
+        raise TypeError("diff is not defined for boolean data (as jnp.subtract)")
+    if _wide_unsigned(lo, hi):
+        return (wrapping(hi) - wrapping(lo)).view(lo.dtype)
+    return hi - lo
+
+
 def _interp(lo, hi):
-    """(hi + lo) * 0.5.  An integer or bool sum is halved in float64, as
-    JAX (x64) promotes it against the weakly typed 0.5; torch would take
-    its default dtype, float32.  Float sums keep their dtype."""
-    s = hi + lo
+    """(hi + lo) * 0.5.  An integer or bool sum (wrapped in its own dtype,
+    as JAX adds) is halved in float64, as JAX (x64) promotes it against
+    the weakly typed 0.5; torch would take its default dtype, float32.
+    Float sums keep their dtype."""
+    s = (wrapping(hi) + wrapping(lo)).view(lo.dtype) if _wide_unsigned(lo, hi) else hi + lo
     if not (s.is_floating_point() or s.is_complex()):
         s = s.to(torch.float64)
     return s * 0.5
 
 
+def _ordered(fn):
+    """torch.minimum/maximum, taking uint16/32/64 through the signed
+    integers of their width with the sign bit flipped (an order-preserving
+    map of the unsigned range onto the signed one)."""
+
+    def op(lo, hi):
+        if not _wide_unsigned(lo, hi):
+            return fn(lo, hi)
+        bits = torch.iinfo(_SIGNED_OF[lo.dtype]).min
+        return (fn(wrapping(lo) ^ bits, wrapping(hi) ^ bits) ^ bits).view(lo.dtype)
+
+    return op
+
+
 PAIR_OPS = {
-    "diff": lambda lo, hi: hi - lo,
+    "diff": _diff,
     "interp": _interp,
-    "min": torch.minimum,
-    "max": torch.maximum,
+    "min": _ordered(torch.minimum),
+    "max": _ordered(torch.maximum),
 }
 
 
@@ -81,9 +132,6 @@ def pairwise_max(a):
 # sums here take that order, so they equal the JAX package's bit for bit,
 # on the card as on the CPU.
 _SCAN_BLOCK = 16
-# integer dtypes whose cumsum torch implements on no device: they wrap
-# modulo 2^bits, so an int64 cumsum cast back gives the same result
-_UNSIGNED_WIDE = (torch.uint16, torch.uint32, torch.uint64)
 
 
 def cumsum(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -94,6 +142,7 @@ def cumsum(x: torch.Tensor, axis: int) -> torch.Tensor:
     if x.dtype == torch.bool:
         return torch.cumsum(x, axis, dtype=torch.int64)
     if x.dtype in _UNSIGNED_WIDE:
+        # they wrap modulo 2^bits, so an int64 cumsum cast back is the same
         return torch.cumsum(x.to(torch.int64), axis).to(x.dtype)
     if not (x.is_floating_point() or x.is_complex()):
         return torch.cumsum(x, axis, dtype=x.dtype)

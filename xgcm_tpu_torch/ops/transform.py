@@ -130,6 +130,12 @@ def interp_1d_linear(
         out = kc.interp_linear(th2, ph2, tg2, mask_edges, not bypass_checks)
         return out.reshape(lead + (m,))
 
+    out_dtype = phi.dtype
+    if not (phi.is_floating_point() or phi.is_complex()):
+        # integer and bool data are selected in float64, as the JAX
+        # package's where(memb, phi, 0.0) promotes them under x64: the lerp
+        # rounds back to their dtype, and the edge clamps make it float64
+        phi = phi.to(torch.float64)
     if not bypass_checks:
         phi, theta = _column_flip(phi, theta)
 
@@ -172,7 +178,7 @@ def interp_1d_linear(
             ph_hi = ph_hi + torch.where(c, ph_next[..., k, None], 0.0)
     w = (t - th_lo) / (th_hi - th_lo)
     w = torch.where(torch.isfinite(w), w, 0.0)
-    out = (ph_lo + w * (ph_hi - ph_lo)).to(phi_b.dtype)
+    out = (ph_lo + w * (ph_hi - ph_lo)).to(out_dtype)
 
     # np.interp edge clamping: below the first valid knot -> its value, at
     # or above the last valid knot -> its value; all-NaN columns -> NaN.

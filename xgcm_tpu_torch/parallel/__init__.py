@@ -1,11 +1,20 @@
 """The sharded layer, single-controller: one process holds a :class:`Mesh`
 of ``torch.device`` (a device may repeat: logical shards on one card) and
 every sharded array as a :class:`ShardedTensor` of blocks; a collective is
-a copy between blocks (:mod:`.collectives`).  The face-sharded route and
-``apply_many`` are not ported yet."""
+a copy between blocks (:mod:`.collectives`).  ``apply_many`` is not ported
+yet."""
 
 from .collectives import all_gather, ppermute, psum, shard_map  # noqa: F401
 from .diagnostics import sharded_cgrid_diagnostics  # noqa: F401
+from .face_sharded import (  # noqa: F401
+    FaceAxisRoles,
+    FaceHaloPlan,
+    compile_face_plan,
+    face_axis_roles,
+    face_halo_pad_widths,
+    sharded_face_cumsum,
+    sharded_face_op,
+)
 from .halo import ring_halo_pad, sharded_cumsum, sharded_op  # noqa: F401
 from .mesh import (  # noqa: F401
     Mesh,

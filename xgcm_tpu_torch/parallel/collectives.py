@@ -110,17 +110,28 @@ def all_gather(blocks: np.ndarray, mesh: Mesh, axis_name: str, axis: int = 0,
     return out
 
 
-def psum(blocks: np.ndarray, mesh: Mesh, axis_name: str) -> np.ndarray:
+def psum(blocks: np.ndarray, mesh: Mesh, axis_name) -> np.ndarray:
     """``lax.psum``: every block receives the sum of the blocks along
-    ``axis_name``, added in index order."""
+    ``axis_name`` (one mesh axis, or a tuple of them: one collective over
+    their product), added in row-major index order.  uint16/32/64 add as
+    the signed integers of their width, which wrap as they do."""
+    from ..ops.stencils import wrapping
+
     COLLECTIVES["psum"] += 1
-    ax = mesh.axis_index(axis_name)
-    n = mesh.devices.shape[ax]
+    names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    axes = [mesh.axis_index(a) for a in names]
+    sizes = [mesh.devices.shape[a] for a in axes]
     out = np.empty(blocks.shape, dtype=object)
     for c in coords(mesh):
         dev = mesh.devices[c]
-        parts = [blocks[_along(c, ax, k)].to(dev) for k in range(n)]
-        out[c] = functools.reduce(torch.add, parts[1:], parts[0].clone())
+        parts = []
+        for ks in np.ndindex(*sizes):
+            src = list(c)
+            for a, k in zip(axes, ks):
+                src[a] = k
+            parts.append(wrapping(blocks[tuple(src)].to(dev)))
+        dtype = blocks[c].dtype
+        out[c] = functools.reduce(torch.add, parts[1:], parts[0].clone()).view(dtype)
     return out
 
 

@@ -31,7 +31,7 @@ from ..core.dataarray import GriddedArray
 from ..core.grid import Grid
 from ..ops.kernels.face_shift import face_shift
 from ..ops.kernels.shift import SHIFT_DTYPES
-from ..ops.stencils import _UNSIGNED_WIDE, apply_pair, cumsum
+from ..ops.stencils import _UNSIGNED_WIDE, apply_pair, cumsum, wrapping
 from .collectives import all_gather, coords, map_blocks, ppermute, shard_map
 from .mesh import Mesh, partition_spec
 
@@ -119,20 +119,25 @@ def ring_halos(blocks: np.ndarray, axis: int, widths: Tuple[int, int], mesh: Mes
     def apply_bc(halo, c, gpos, outside, side):
         if boundary == "fill":
             return torch.where(outside, _scalar(fill_value, halo.dtype, halo.device), halo)
-        edges = (firsts if side < 0 else lasts)[c]
+        # uint16/32/64 select and extrapolate as the signed ints of their
+        # width: the same bits, wrapping as JAX's unsigned arithmetic does
+        dtype = halo.dtype
+        halo, edges = wrapping(halo), wrapping((firsts if side < 0 else lasts)[c])
         size = edges.shape[axis]
+        if boundary == "extrapolate" and dtype == torch.bool:
+            raise TypeError("extrapolate is not defined for boolean data (as jnp.subtract)")
         if side < 0:
             x0 = edges.narrow(axis, 0, 1)
             if boundary == "extend":
-                return torch.where(outside, x0, halo)
+                return torch.where(outside, x0, halo).view(dtype)
             x1 = edges.narrow(axis, min(1, size - 1), 1)
-            return torch.where(outside, x0 + gpos.to(halo.dtype) * (x1 - x0), halo)
+            return torch.where(outside, x0 + gpos.to(halo.dtype) * (x1 - x0), halo).view(dtype)
         xn = edges.narrow(axis, size - 1, 1)
         if boundary == "extend":
-            return torch.where(outside, xn, halo)
+            return torch.where(outside, xn, halo).view(dtype)
         xm = edges.narrow(axis, max(size - 2, 0), 1)
         ks = (gpos - (n_total - 1)).to(halo.dtype)
-        return torch.where(outside, xn + ks * (xn - xm), halo)
+        return torch.where(outside, xn + ks * (xn - xm), halo).view(dtype)
 
     # global positions of the halo elements: c*n_local - lw + j on the
     # left, (c + 1)*n_local + j on the right; only the shards whose halo
@@ -223,16 +228,30 @@ def _face_connected_axis(grid: Grid, axis_name: str) -> bool:
     }
 
 
-def _resolve(grid: Grid, da: GriddedArray, axis_name: str, to, boundary, fill_value):
-    ax = grid.axes[axis_name]
-    if _face_connected_axis(grid, axis_name):
-        # a plain ring halo would wrap the LOCAL grid BC instead of the
-        # rotated/flipped cross-face strips — silently wrong, so refuse
+def _face_route(grid: Grid, da: GriddedArray, axis_name: str, dim_to_mesh_axis):
+    """The face-sharded roles (``face_sharded.face_axis_roles``) for an op
+    along a face-connected axis with the face dim mesh-mapped, None for any
+    other op.  A face-connected axis without the face dim mapped raises:
+    a plain ring halo would wrap the LOCAL grid BC instead of the
+    rotated/flipped cross-face strips, silently wrong."""
+    from .face_sharded import face_axis_roles
+
+    if not _face_connected_axis(grid, axis_name):
+        return None
+    roles = None
+    if grid._facedim in da.dims:
+        roles = face_axis_roles(grid, dim_to_mesh_axis, da.dims, strict=False)
+    if roles is None or axis_name not in (roles.x_axis, roles.y_axis):
         raise NotImplementedError(
             f"axis {axis_name!r} is face-connected; ring halos cannot serve its "
-            "cross-face boundaries, and the face-sharded route (face_sharded) is not "
-            "ported to xgcm_tpu_torch yet"
+            "cross-face boundaries: map the face dim to a mesh axis (the face-sharded "
+            "route), or use ShardedGrid"
         )
+    return roles
+
+
+def _resolve(grid: Grid, da: GriddedArray, axis_name: str, to, boundary, fill_value):
+    ax = grid.axes[axis_name]
     from_pos, dim = ax._get_position_name(da)
     to_pos = to or ax.default_shifts[from_pos]
     if (from_pos, to_pos) not in _SHARDABLE_WIDTHS:
@@ -265,7 +284,17 @@ def sharded_op(
     ``dim_to_mesh_axis`` maps array dims to mesh axes; the core dim's entry
     selects the mesh axis used for the halo ring.  Dims not in the mapping
     are replicated.  Result equals the single-device ``grid.<funcname>``.
+    An op along a face-connected axis with the face dim mapped takes the
+    face-sharded route (:func:`~.face_sharded.sharded_face_op`).
     """
+    roles = _face_route(grid, da, axis_name, dim_to_mesh_axis)
+    if roles is not None:
+        from .face_sharded import sharded_face_op
+
+        return sharded_face_op(grid, funcname, da, axis_name, mesh, *roles[:3], to=to,
+                               boundary=boundary, fill_value=fill_value,
+                               interior_mesh_axis=roles.interior_mesh_axis,
+                               interior_mesh_axis_x=roles.interior_mesh_axis_x)
     from_pos, to_pos, dim, out_dim, widths, bc, fv = _resolve(
         grid, da, axis_name, to, boundary, fill_value
     )
@@ -318,13 +347,18 @@ def sharded_cumsum(
 
     The local prefix sum runs per shard; shard offsets come from an
     ``all_gather`` of block totals.  The position trim/pad (reference
-    grid.py:1131-1154) becomes a one-element halo shift.
+    grid.py:1131-1154) becomes a one-element halo shift.  A cumsum along a
+    face-connected axis with the face dim mapped takes the face-sharded
+    route (:func:`~.face_sharded.sharded_face_cumsum`).
     """
-    if _face_connected_axis(grid, axis_name):
-        raise NotImplementedError(
-            f"axis {axis_name!r} is face-connected; the face-sharded cumsum "
-            "(sharded_face_cumsum) is not ported to xgcm_tpu_torch yet"
-        )
+    roles = _face_route(grid, da, axis_name, dim_to_mesh_axis)
+    if roles is not None:
+        from .face_sharded import sharded_face_cumsum
+
+        return sharded_face_cumsum(grid, da, axis_name, mesh, *roles[:3], to=to,
+                                   boundary=boundary, fill_value=fill_value,
+                                   interior_mesh_axis=roles.interior_mesh_axis,
+                                   interior_mesh_axis_x=roles.interior_mesh_axis_x)
     ax = grid.axes[axis_name]
     from_pos, dim = ax._get_position_name(da)
     to_pos = to or ax.default_shifts[from_pos]

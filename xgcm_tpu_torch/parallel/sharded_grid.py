@@ -2,8 +2,13 @@
 
 The counterpart of :class:`xgcm_tpu.parallel.ShardedGrid`: pick a mesh and a
 dim->mesh-axis mapping once, then call the usual operator methods.  Each op
-takes one of three routes:
+takes one of four routes:
 
+* the face route, on a face-connected grid with its face dim mesh-mapped
+  and an op along an in-face axis: :func:`~.face_sharded.sharded_face_op`
+  (kernel E per block for the built-in ops, the sharded engine with the
+  face strip exchange for the rest) and
+  :func:`~.face_sharded.sharded_face_cumsum`;
 * the ring route, when its core dim is sharded and the position shift keeps
   the length: ring halos between the blocks, then kernel E per block for
   the built-in ops (:func:`~.halo.ring_shift`), the sharded engine for the
@@ -15,9 +20,8 @@ takes one of three routes:
   by the mapping after — the gather a GSPMD partitioner makes.
 
 Transforms run per shard over the column dims (kernels C, G, F and H per
-block).  The face-sharded route (a face-connected grid with its face dim
-mesh-mapped) and ``apply_many`` are not ported yet and raise
-``NotImplementedError``; they do not gather.
+block).  ``apply_many`` is not ported yet and raises
+``NotImplementedError``; it does not gather.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from .collectives import coords, map_blocks
 from .halo import _SHARDABLE_WIDTHS, ring_kernel_ok, sharded_cumsum, sharded_op
 from .mesh import Mesh, partition_spec, shard_gridded, to_sharded
 from .sharded_tensor import ShardedTensor
-from .sharded_ufunc import FACE_ROUTE_MISSING, sharded_apply_as_grid_ufunc
+from .sharded_ufunc import sharded_apply_as_grid_ufunc
 
 __all__ = ["ShardedGrid"]
 
@@ -116,19 +120,25 @@ class ShardedGrid:
         grid = self.grid
         return {a for links in grid._face_connections[grid._facedim].values() for a in links}
 
-    def _face_route(self, da, ax_name) -> bool:
-        """True where the JAX package takes its face-sharded route: a
-        face-connected grid, its face dim mesh-mapped and held by the
-        array, and an op along a face-connected axis."""
+    def _face_sharded_args(self, da):
+        """(mesh_axis, x_axis, y_axis, interior_y, interior_x) when the
+        grid's face dim is sharded and the in-face axes are resolvable,
+        else None.  A vector input (single-entry dict) is judged by its
+        component.  When one in-face axis is also mesh-mapped it takes the
+        y (rows) role; when both are, the face x y x x decomposition
+        applies."""
+        from .face_sharded import face_axis_roles
+
         grid = self.grid
         if isinstance(da, dict):
             (da,) = da.values()
-        return (
-            grid._face_connections is not None
-            and grid._facedim in da.dims
-            and self.dim_to_mesh_axis.get(grid._facedim) is not None
-            and ax_name in self._conn_axes()
-        )
+        if grid._face_connections is None or grid._facedim not in da.dims:
+            return None
+        roles = face_axis_roles(grid, self.dim_to_mesh_axis, da.dims, strict=False)
+        if roles is None:
+            return None
+        return (roles.face_mesh_axis, roles.x_axis, roles.y_axis,
+                roles.interior_mesh_axis, roles.interior_mesh_axis_x)
 
     def _ring_1d_op(self, name, da, ax_name, to, boundary, fill_value, **kw):
         """One built-in op along a sharded core dim: kernel E per block
@@ -162,6 +172,7 @@ class ShardedGrid:
     def _op(self, name, da, axis, to=None, boundary=None, fill_value=None,
             metric_weighted=None, **kw):
         from ..adapters.xarray_adapter import as_native
+        from .face_sharded import sharded_face_cumsum, sharded_face_op
 
         da = as_native(da)
         if isinstance(da, dict):
@@ -182,12 +193,23 @@ class ShardedGrid:
             if mw:
                 out = out * self.grid.get_metric(out, mw)
 
-            if self._face_route(out, ax_name):
-                raise NotImplementedError(
-                    f"{name} along {ax_name!r} with the face dim mesh-mapped: "
-                    f"{FACE_ROUTE_MISSING}"
-                )
-            if (
+            face_args = self._face_sharded_args(out)
+            if face_args is not None and ax_name in face_args[1:3]:
+                mesh_axis, x_axis, y_axis, interior_y, interior_x = face_args
+                if name == "cumsum":
+                    out = sharded_face_cumsum(
+                        self.grid, out, ax_name, self.mesh, mesh_axis, x_axis, y_axis,
+                        to=ax_to, boundary=boundary, fill_value=fill_value,
+                        interior_mesh_axis=interior_y, interior_mesh_axis_x=interior_x,
+                    )
+                else:
+                    out = sharded_face_op(
+                        self.grid, name, out, ax_name, self.mesh, mesh_axis, x_axis, y_axis,
+                        to=ax_to, boundary=boundary, fill_value=fill_value,
+                        other_component=kw.get("other_component"),
+                        interior_mesh_axis=interior_y, interior_mesh_axis_x=interior_x,
+                    )
+            elif (
                 not isinstance(out, dict)
                 and self._core_dim_sharded(out, ax_name, ax_to)
                 and not self._face_axis_without_face_mapping(ax_name)
@@ -344,8 +366,9 @@ class ShardedGrid:
     def apply_as_grid_ufunc(self, func, *args, axis=None, signature="", boundary_width=None,
                             boundary=None, fill_value=None, **kwargs):
         """Apply a custom kernel, sharded over any mesh-mapped core dims at
-        its declared boundary_width; per block when only batch dims are
-        sharded; else on the assembled arrays."""
+        its declared boundary_width (on a face-connected grid with the face
+        dim mapped, through the face strip exchange); per block when only
+        batch dims are sharded; else on the assembled arrays."""
         sig = (
             signature
             if isinstance(signature, GridUFuncSignature)
@@ -362,10 +385,6 @@ class ShardedGrid:
             self.grid._face_connections is not None
             and self.dim_to_mesh_axis.get(self.grid._facedim) is not None
         )
-        if face_sharded:
-            raise NotImplementedError(
-                f"apply_as_grid_ufunc with the face dim mesh-mapped: {FACE_ROUTE_MISSING}"
-            )
         batch_sharded = any(
             self.dim_to_mesh_axis.get(d) is not None
             for a in args
@@ -374,14 +393,19 @@ class ShardedGrid:
         # a sharded face-connected core dim WITHOUT the face dim mapped has
         # no ring route (rotated cross-face halos are not shard-local) —
         # the fall-through below stays correct
-        face_unroutable = self.grid._face_connections is not None and any(
-            self._face_axis_without_face_mapping(n)
-            and self.dim_to_mesh_axis.get(self.grid.axes[n].coords.get(p)) is not None
-            for arg_ns, arg_ps in zip(axis, sig.in_ax_positions)
-            for n, p in zip(arg_ns, arg_ps)
+        face_unroutable = (
+            not face_sharded
+            and self.grid._face_connections is not None
+            and any(
+                self._face_axis_without_face_mapping(n)
+                and self.dim_to_mesh_axis.get(self.grid.axes[n].coords.get(p)) is not None
+                for arg_ns, arg_ps in zip(axis, sig.in_ax_positions)
+                for n, p in zip(arg_ns, arg_ps)
+            )
         )
         if not face_unroutable and (
-            any_sharded or (batch_sharded and self.grid._face_connections is None)
+            any_sharded or face_sharded
+            or (batch_sharded and self.grid._face_connections is None)
         ):
             return sharded_apply_as_grid_ufunc(
                 func, *args, axis=axis, grid=self.grid, signature=sig,

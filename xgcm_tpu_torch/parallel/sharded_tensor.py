@@ -214,6 +214,9 @@ def _assemble(x: ShardedTensor) -> torch.Tensor:
     dim_of = {ax: d for d, ax in enumerate(spec) if ax is not None}
     used = [a for a in mesh.axis_names if a in dim_of]
     sub = x.blocks[tuple(slice(None) if a in dim_of else 0 for a in mesh.axis_names)]
+    if not used:
+        # replicated along every mesh axis: the first block is the tensor
+        return sub.to(dev, copy=True)
     parts = np.empty(sub.shape, dtype=object)
     for c in np.ndindex(sub.shape):
         parts[c] = sub[c].to(dev)

@@ -1,25 +1,31 @@
 """Generic sharded execution of grid ufuncs: the engine per shard.
 
-The counterpart of :mod:`xgcm_tpu.parallel.sharded_ufunc` on face-less
-grids, and on face-connected grids whose face dim is local to every shard:
-the ordinary single-device engine (:func:`xgcm_tpu_torch.apply_as_grid_ufunc`)
-runs once per shard against a grid whose sharded dims carry per-shard
-sizes, with its pad step swapped for the blocks padded collectively:
+The counterpart of :mod:`xgcm_tpu.parallel.sharded_ufunc`: the ordinary
+single-device engine (:func:`xgcm_tpu_torch.apply_as_grid_ufunc`) runs once
+per shard against a grid whose sharded dims carry per-shard sizes, with its
+pad step swapped for the blocks padded collectively:
 
-* ring halos (:func:`~.halo.ring_halo_pad`) on the mesh-mapped core dims,
-* the normal local boundary padding on the rest, so mixed layouts (X
-  sharded, Y replicated) work as they do in JAX.
+* face-less grids (and face grids whose face dim is local to every shard):
+  ring halos (:func:`~.halo.ring_halo_pad`) on the mesh-mapped core dims,
+  the normal local boundary padding on the rest, so mixed layouts (X
+  sharded, Y replicated) work as they do in JAX;
+* face-connected grids with the face dim mesh-mapped: the strip exchange
+  of :func:`~.face_sharded.face_halo_pad_widths` at the ufunc's declared
+  widths on the two in-face axes (faces over one mesh axis, optionally the
+  rows over a second and the columns over a third, with dummy faces when
+  the face count does not divide its axis), ring halos or local pads on
+  any other axis.
 
 A halo exchange needs every shard's block, so all shards are padded before
 the engine runs on any of them; the ``_pad_fn`` hook hands each shard's
 engine its padded blocks in the order it asks for them.
 
 Restrictions mirror the reference's overlap rules
-(``grid_ufunc.py:1069-1092``): positions on a sharded axis must be
-length-preserving (center/left/right), ``pad_before_func=False`` ops
+(``grid_ufunc.py:1069-1092``): positions on a sharded axis (and on both
+in-face axes of a face-sharded grid, whose faces keep uniform shapes) must
+be length-preserving (center/left/right), ``pad_before_func=False`` ops
 (cumsum-style) are refused — :func:`~.halo.sharded_cumsum` parallelises the
-prefix sum — and so are uneven shards.  A face-connected grid with its face
-dim mesh-mapped needs the face-sharded route, which is not ported yet.
+prefix sum — and so are uneven shards.
 """
 
 from __future__ import annotations
@@ -41,19 +47,14 @@ from ..core.grid_ufunc import (
 from ..core.padding import pad
 from ..core.signature import GridUFuncSignature
 from .collectives import coords, shard_map
+from .face_sharded import FaceSetup, face_halo_pad_widths
 from .halo import ring_halo_pad
 from .mesh import Mesh, partition_spec
+from .sharded_tensor import ShardedTensor
 
 __all__ = ["sharded_apply_as_grid_ufunc"]
 
 _LENGTH_PRESERVING = {"center", "left", "right"}
-
-FACE_ROUTE_MISSING = (
-    "the face-sharded route (face dim mesh-mapped: compiled face plans, the "
-    "face x y x x decomposition, vector sign rules) is not ported to "
-    "xgcm_tpu_torch yet"
-)
-
 
 def _sharded_axes_of(grid: Grid, dim_to_mesh_axis: Mapping[str, str]) -> Mapping[str, str]:
     """Map grid-axis name -> mesh axis, for axes with any mesh-mapped dim.
@@ -190,43 +191,48 @@ def sharded_apply_as_grid_ufunc(
     Equals the single-device :func:`xgcm_tpu_torch.apply_as_grid_ufunc`
     result; see the module docstring for the restrictions.
     """
+    face_setup = None
     if grid._face_connections is not None:
         if dim_to_mesh_axis.get(grid._facedim) is not None:
-            raise NotImplementedError(
-                f"face dim {grid._facedim!r} is mesh-mapped: {FACE_ROUTE_MISSING}"
-            )
-        # face dim local on every shard: connected-axis halos stay intact
-        # locally, so the ring route serves sharded NON-connected axes (Z)
-        # — but a sharded face-connected dim would need rotated cross-face
-        # strips from other shards
-        conn_dims = {
-            d
-            for links in grid._face_connections[grid._facedim].values()
-            for a in links
-            for d in grid.axes[a].coords.values()
-        }
-        bad = sorted(conn_dims & {d for d, m in dim_to_mesh_axis.items() if m is not None})
-        if bad:
-            raise NotImplementedError(
-                f"sharding the face-connected dims {bad} requires the face dim "
-                f"{grid._facedim!r} mapped to a mesh axis too (rotated cross-face "
-                f"halos are not shard-local), and {FACE_ROUTE_MISSING}"
-            )
-        if any(isinstance(a, dict) for a in args):
-            raise NotImplementedError(
-                f"vector components on a face-connected grid require the face dim "
-                f"mesh-mapped, and {FACE_ROUTE_MISSING}"
-            )
+            first = _maybe_unpack_vector_component(args[0]) if args else None
+            face_setup = FaceSetup.infer(grid, mesh, dim_to_mesh_axis,
+                                         first_arg_dims=tuple(getattr(first, "dims", ())))
+        else:
+            # face dim local on every shard: connected-axis halos stay
+            # intact locally, so the ring route serves sharded NON-connected
+            # axes (Z), but a sharded face-connected dim would need rotated
+            # cross-face strips from other shards
+            conn_dims = {
+                d
+                for links in grid._face_connections[grid._facedim].values()
+                for a in links
+                for d in grid.axes[a].coords.values()
+            }
+            bad = sorted(conn_dims & {d for d, m in dim_to_mesh_axis.items() if m is not None})
+            if bad:
+                raise NotImplementedError(
+                    f"sharding the face-connected dims {bad} requires the face dim "
+                    f"{grid._facedim!r} mapped to a mesh axis too (rotated cross-face "
+                    "halos are not shard-local)"
+                )
+            if any(isinstance(a, dict) for a in args):
+                raise NotImplementedError(
+                    "vector components on a face-connected grid require the face dim "
+                    "mesh-mapped"
+                )
     if not pad_before_func:
         raise NotImplementedError(
             "pad_before_func=False (cumsum-style) ops cannot use halo exchange; "
             "use sharded_cumsum"
         )
-    ocs = other_component if isinstance(other_component, Sequence) else [other_component]
-    if any(oc is not None for oc in ocs):
+    ocs = list(other_component) if isinstance(other_component, Sequence) else [other_component]
+    if face_setup is None and any(oc is not None for oc in ocs):
         # other_component only affects face-connection sign rules, which the
         # face-less route never hits
         raise NotImplementedError("other_component is only meaningful on face-connected grids")
+    if len(ocs) == 1 and len(args) > 1 and ocs[0] is None:
+        ocs = ocs * len(args)
+    ocs = ocs + [None] * (len(args) - len(ocs))
 
     sig = (
         signature
@@ -243,15 +249,19 @@ def sharded_apply_as_grid_ufunc(
     axis_to_mesh_axis = _sharded_axes_of(grid, dim_to_mesh_axis)
 
     # positions on a sharded axis must be length-preserving (the analog of
-    # reference grid_ufunc.py:1069-1092's DISALLOWED_OVERLAP_POSITIONS);
-    # checked before any coords lookup so a missing inner/outer coord still
-    # reports the real restriction
+    # reference grid_ufunc.py:1069-1092's DISALLOWED_OVERLAP_POSITIONS), and
+    # on the two in-face axes of a face-sharded grid too (faces keep
+    # uniform shapes); checked before any coords lookup so a missing
+    # inner/outer coord still reports the real restriction
+    restricted = set(axis_to_mesh_axis)
+    if face_setup is not None:
+        restricted |= {face_setup.x_axis, face_setup.y_axis}
     for arg_ns, arg_ps in zip(
         list(axis) + out_ax_names,
         list(sig.in_ax_positions) + list(sig.out_ax_positions),
     ):
         for n, p in zip(arg_ns, arg_ps):
-            if n in axis_to_mesh_axis and p not in _LENGTH_PRESERVING:
+            if n in restricted and p not in _LENGTH_PRESERVING:
                 raise NotImplementedError(
                     f"cannot shard along axis {n!r}: position {p!r} changes the array "
                     f"length (only center/left/right positions are shardable, like the "
@@ -273,27 +283,42 @@ def sharded_apply_as_grid_ufunc(
     fv = grid._complete_user_kwargs_using_axis_defaults(fill_value, "fill_value")
     bw = _substitute_dummy_axis_names(boundary_width, dummy_to_real)
 
-    local_grid = _local_grid(grid, mesh, axis_to_mesh_axis, keep_face_connections=True)
+    # faces-local route: shards hold whole faces, so the local pads of
+    # connected axes assemble cross-face halos; the face route pads them
+    # with the strip exchange before the engine runs
+    local_grid = _local_grid(grid, mesh, axis_to_mesh_axis,
+                             keep_face_connections=face_setup is None)
     sharded_dims = {
         dim: axis_to_mesh_axis[name]
         for name, ax in grid.axes.items()
         if name in axis_to_mesh_axis
         for dim in ax.coords.values()
     }
-    # non-core dims (e.g. batch) keep the caller's mapping
+    # non-core dims (e.g. batch, the face dim) keep the caller's mapping
     full_map = {**dict(dim_to_mesh_axis), **sharded_dims}
 
     in_specs = [partition_spec(a.dims, full_map) for a in arg_arrays]
     out_dims = _output_dims([a.dims for a in arg_arrays], in_core_dims, out_core_dims, sig)
     out_specs = tuple(partition_spec(dims, full_map) for dims in out_dims)
 
-    local_bw = {n: w for n, w in bw.items() if n not in axis_to_mesh_axis}
-    ring_bw = {n: w for n, w in bw.items() if n in axis_to_mesh_axis and tuple(w) != (0, 0)}
+    fs = face_setup
+    face_axes = () if fs is None else (fs.x_axis, fs.y_axis)
+    other_bw = {n: w for n, w in bw.items() if n not in face_axes}
+    local_bw = {n: w for n, w in other_bw.items() if n not in axis_to_mesh_axis}
+    ring_bw = {n: w for n, w in other_bw.items()
+               if n in axis_to_mesh_axis and tuple(w) != (0, 0)}
+    face_bw = None
+    if fs is not None:
+        face_bw = (tuple(bw.get(fs.x_axis, (0, 0))), tuple(bw.get(fs.y_axis, (0, 0))))
 
-    def padded_blocks(arr: GriddedArray, blocks: np.ndarray) -> np.ndarray:
+    def padded_blocks(arr: GriddedArray, blocks: np.ndarray, vector_axis=None,
+                      partner=None) -> np.ndarray:
         """Every shard's block of ``arr`` as a local GriddedArray, padded:
         the local boundary padding on unsharded axes first, then ring
-        halos on the sharded ones (commutative for pointwise BC modes)."""
+        halos on the sharded ones (commutative for pointwise BC modes),
+        then on a face-sharded grid the strip exchange on the two in-face
+        axes (``partner``: the other vector component's GriddedArray and
+        blocks)."""
         local = np.empty(blocks.shape, dtype=object)
         for c in coords(mesh):
             da = GriddedArray(blocks[c], arr.dims, name=arr.name)
@@ -311,10 +336,65 @@ def sharded_apply_as_grid_ufunc(
                                  float(fv[n]))
             for c in coords(mesh):
                 local[c] = local[c].with_data(data[c])
+        if fs is None or face_bw == ((0, 0), (0, 0)):
+            return local
+
+        def arranged(garrs):
+            first = garrs.flat[0]
+            ydim = local_grid.axes[fs.y_axis]._get_position_name(first)[1]
+            xdim = local_grid.axes[fs.x_axis]._get_position_name(first)[1]
+            rest = [d for d in first.dims if d not in (fs.facedim, ydim, xdim)]
+            order = (*rest, fs.facedim, ydim, xdim)
+            data = np.empty(garrs.shape, dtype=object)
+            for c in coords(mesh):
+                data[c] = garrs[c].transpose(*order).data
+            return data, order
+
+        data, order = arranged(local)
+        partner_data = None
+        vec_code = None
+        if vector_axis is not None:
+            if partner is None:
+                raise ValueError("Padding vector components requires `other_component` input.")
+            vec_code = 0 if vector_axis == fs.x_axis else 1
+            p_arr, p_blocks = partner
+            p_local = np.empty(p_blocks.shape, dtype=object)
+            for c in coords(mesh):
+                p_local[c] = GriddedArray(p_blocks[c], p_arr.dims, name=p_arr.name)
+            partner_data, _ = arranged(p_local)
+        padded = face_halo_pad_widths(
+            data, mesh, fs.plan, face_bw[0], face_bw[1], fs.face_mesh_axis,
+            bc[fs.x_axis], bc[fs.y_axis], float(fv[fs.x_axis]), float(fv[fs.y_axis]),
+            fs.x_axis, fs.y_axis, interior_mesh_axis=fs.interior_mesh_axis,
+            partner_blocks=partner_data, vector_axis_code=vec_code,
+            interior_mesh_axis_x=fs.interior_mesh_axis_x,
+        )
+        for c in coords(mesh):
+            local[c] = GriddedArray(padded[c], order, name=arr.name)
         return local
 
-    def local(*arg_blocks):
-        padded = [padded_blocks(arr, b) for arr, b in zip(arg_arrays, arg_blocks)]
+    # partner (other_component) arrays ride along as extra operands
+    partners = [None if oc is None else next(iter(oc.values())) for oc in ocs]
+    operands = list(arg_arrays) + [p for p in partners if p is not None]
+    operand_specs = in_specs + [partition_spec(p.dims, full_map) for p in partners
+                                if p is not None]
+    if fs is not None:
+        # dummy faces round the face dim up to the face axis; the blocks
+        # go in as ShardedTensors of the padded layout
+        placed = []
+        for a, spec in zip(operands, operand_specs):
+            placed.append(ShardedTensor(fs.blocks(a, spec), mesh, spec))
+    else:
+        placed = [a.data for a in operands]
+
+    def local(*blocks):
+        arg_blocks = blocks[: len(args)]
+        partner_blocks = iter(blocks[len(args):])
+        padded = []
+        for a, arr, b, pa in zip(args, arg_arrays, arg_blocks, partners):
+            partner = None if pa is None else (pa, next(partner_blocks))
+            vector_axis = next(iter(a)) if isinstance(a, dict) else None
+            padded.append(padded_blocks(arr, b, vector_axis, partner))
         outs = [np.empty(mesh.devices.shape, dtype=object) for _ in out_dims]
         for c in coords(mesh):
             handed = iter([p[c] for p in padded])
@@ -342,10 +422,11 @@ def sharded_apply_as_grid_ufunc(
         return outs[0] if len(out_dims) == 1 else tuple(outs)
 
     single = len(out_dims) == 1
-    raw = shard_map(local, mesh, in_specs, out_specs[0] if single else out_specs)(
-        *(a.data for a in arg_arrays)
-    )
+    raw = shard_map(local, mesh, operand_specs, out_specs[0] if single else out_specs)(*placed)
+    raws = (raw,) if single else raw
     name = arg_arrays[0].name
-    if single:
-        return GriddedArray(raw, out_dims[0], name=name)
-    return tuple(GriddedArray(r, dims, name=name) for r, dims in zip(raw, out_dims))
+    results = []
+    for r, dims, spec in zip(raws, out_dims, out_specs):
+        data = r if fs is None else fs.result(r.blocks, dims, spec)
+        results.append(GriddedArray(data, dims, name=name))
+    return results[0] if single else tuple(results)
