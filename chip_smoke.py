@@ -2167,6 +2167,17 @@ CUMSUM_BUDGET = {"fill": {"ppermute": 1, "all_gather": 1},
 FACE_BUDGET = {"scalar": {"all_gather": 1}, "vector": {"all_gather": 2}}
 FACE_ROWS_VECTOR_BUDGET = {"psum": 2, "all_gather": 2, "ppermute": 2}
 FACE_ROWS_CUMSUM_BUDGET = {"psum": 1, "all_gather": 2, "ppermute": 2}
+# apply_many pads each distinct (input, boundary conditions, vector role)
+# key once.  The face analysis's eight ops have five keys: theta for its
+# two diffs (one strip pool), u and v each as the X component with the
+# other as partner and as the Y component (the diff and the interp of the
+# divergence and the vector interp share the key): 1 + 4 x 2 all_gathers,
+# where the eight separate ops make 2 + 6 x 2.  The 2 x 2 diagnostics
+# batch pads u and v once each, one ring halo on each of the two axes: the
+# fused program's four ppermutes.  tests/test_torch_apply_many.py holds
+# both to the jaxprs of xgcm_tpu's sharded_apply_many.
+FACE_BATCH_BUDGET = {"all_gather": 1 + 4 * 2}
+DIAGNOSTICS_BATCH_BUDGET = {"ppermute": 4}
 # tests/test_sharding.py holds the sharded cumsum to rtol 1e-12 in float64;
 # scaled by the ratio of the float32 and float64 units in the last place
 # (2^-23 / 2^-52), about 5.4e-4
@@ -2277,9 +2288,10 @@ def sharded_phase(xtt, build, gen, dev, card, nz=NZ, ny=NY, nx=NX, timing=True):
     """Phase 11: the sharded layer on logical shards of the one card, at
     one LLC4320 face: the ring route (kernel E per block), the sharded
     cumsum, the batch route (A per block), the sharded C-grid diagnostics
-    on a 2 x 2 mesh, the per-shard transforms (C, G, F, H per block), the
-    metric route; each against the single-device call, with its launches,
-    collectives, time and peak memory."""
+    and the same six ops as one apply_many on a 2 x 2 mesh, the per-shard
+    transforms (C, G, F, H per block), the metric route, then the
+    face-sharded part; each against the single-device call, with its
+    launches, collectives, time and peak memory."""
     from xgcm_tpu_torch import parallel as par
     from xgcm_tpu_torch.parallel.diagnostics import sharded_cgrid_diagnostics
 
@@ -2288,10 +2300,20 @@ def sharded_phase(xtt, build, gen, dev, card, nz=NZ, ny=NY, nx=NX, timing=True):
     # CUDA events and the profiler window time one card's stream
     timing = timing and len(set(phase_devices(dev, N_SHARDS))) == 1
 
-    def timed(name, sharded, single):
-        if timing:
+    def timed(name, sharded, single, other=None):
+        """Times of ``sharded`` and ``single``; ``other`` (label, fn): a
+        second sharded program of the same results, timed in turns with
+        ``sharded``."""
+        if not timing:
+            return
+        if other is None:
             s_ms, one_ms = time_pair(sharded, single, reps=3)
-            times.append((name, s_ms, one_ms, sharded_split(sharded)))
+            extra = ""
+        else:
+            s_ms, o_ms = time_pair(sharded, other[1], reps=3)
+            one_ms, _ = time_pair(single, reps=3)
+            extra = f", {other[0]} {o_ms:.4f} ms"
+        times.append((name, s_ms, one_ms, extra, sharded_split(sharded)))
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2419,6 +2441,12 @@ def sharded_phase(xtt, build, gen, dev, card, nz=NZ, ny=NY, nx=NX, timing=True):
     del fused, seq, single
     timed("sharded diagnostics (2 x 2)", lambda: sharded_cgrid_diagnostics(grid, u, v, mesh2, m2),
           lambda: chain(grid))
+    check_diagnostics_batch(xtt, build, grid, sg2, u, v, mesh2, m2, card)
+    timed("diagnostics batch (apply_many, 2 x 2)",
+          lambda: diagnostics_batch(xtt, sg2, u, v),
+          lambda: chain(grid),
+          other=("fused sharded diagnostics",
+                 lambda: sharded_cgrid_diagnostics(grid, u, v, mesh2, m2)))
     del u, v
     torch.cuda.empty_cache()
 
@@ -2473,7 +2501,7 @@ def sharded_phase(xtt, build, gen, dev, card, nz=NZ, ny=NY, nx=NX, timing=True):
             f"peak device memory {peak:.2f} GB above its inputs [{card}]")
         if timing:
             s_ms, _ = time_pair(call, reps=3)
-            times.append((f"per-shard {name}", s_ms, one_ms[name], sharded_split(call)))
+            times.append((f"per-shard {name}", s_ms, one_ms[name], "", sharded_split(call)))
     del ins
     torch.cuda.empty_cache()
 
@@ -2481,10 +2509,112 @@ def sharded_phase(xtt, build, gen, dev, card, nz=NZ, ny=NY, nx=NX, timing=True):
 
     if not timing:
         log("phase 11: times not measured (CUDA events time one card's stream)")
-    for name, s_ms, one_ms_, split in times:
-        log(f"time phase 11 {name}: sharded {s_ms:.4f} ms, single-device {one_ms_:.4f} ms "
-            f"(CUDA events); sharded split: {split} [{card}]")
+    for name, s_ms, one_ms_, extra, split in times:
+        log(f"time phase 11 {name}: sharded {s_ms:.4f} ms{extra}, single-device {one_ms_:.4f} "
+            f"ms (CUDA events); sharded split: {split} [{card}]")
     log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+
+def no_kernel(build):
+    """Launch counts of none of the port's kernels (A-H)."""
+    return {name: 0 for name in build.launch_counts()}
+
+
+def diagnostics_batch(xtt, g, u, v):
+    """The six ops of zeta, div and ke (tests/test_apply_many.py's
+    ``_diag_specs``) in one ``g.apply_many``, as gridops ufunc specs:
+    (dv/dx, du/dy, du/dx, dv/dy, u_c, v_c)."""
+    from xgcm_tpu_torch.core import gridops
+
+    def spec(name, arg, axis):
+        op = getattr(gridops, name)
+        return dict(func=op.ufunc, args=[arg], axis=[(axis,)], signature=op.signature,
+                    boundary_width=op.boundary_width)
+
+    return g.apply_many([
+        spec("diff_center_to_left", v, "X"), spec("diff_center_to_left", u, "Y"),
+        spec("diff_left_to_center", u, "X"), spec("diff_left_to_center", v, "Y"),
+        spec("interp_left_to_center", u, "X"), spec("interp_left_to_center", v, "Y"),
+    ])
+
+
+def check_diagnostics_batch(xtt, build, grid, sg2, u, v, mesh2, m2, card):
+    """The six-op diagnostics batch on the 2 x 2 mesh: zeta, div and ke
+    formed from it equal ``sharded_cgrid_diagnostics`` within the JAX
+    test's rtol (1e-7), and each of the six results the single-device op
+    bit for bit; no kernel launched, the fused program's four ppermutes,
+    where the chain of six separate ops makes more."""
+    from xgcm_tpu_torch.parallel.diagnostics import sharded_cgrid_diagnostics
+
+    outs, launches, cc = counted_call(build, lambda: diagnostics_batch(xtt, sg2, u, v))
+    expect_counts("diagnostics batch", launches, cc, no_kernel(build), DIAGNOSTICS_BATCH_BUDGET)
+    _, _, cc_chain = counted_call(build, lambda: [
+        sg2.diff(v, "X"), sg2.diff(u, "Y"), sg2.diff(u, "X", to="center"),
+        sg2.diff(v, "Y", to="center"), sg2.interp(u, "X", to="center"),
+        sg2.interp(v, "Y", to="center")])
+    if cc_chain["total"] <= cc["total"]:
+        raise AssertionError(f"diagnostics batch: collectives {cc}, the six separate ops "
+                             f"{cc_chain}: the batch should make fewer")
+    singles = (grid.diff(v, "X"), grid.diff(u, "Y"), grid.diff(u, "X", to="center"),
+               grid.diff(v, "Y", to="center"), grid.interp(u, "X", to="center"),
+               grid.interp(v, "Y", to="center"))
+    for name, got, want in zip(("dv/dx", "du/dy", "du/dx", "dv/dy", "u_c", "v_c"), outs,
+                               singles):
+        same_by_block(f"diagnostics batch {name}", got, want)
+    dvdx, dudy, dudx, dvdy, u_c, v_c = outs
+    fused = sharded_cgrid_diagnostics(grid, u, v, mesh2, m2)
+    for name, got, want in zip(("zeta", "div", "ke"),
+                               (dvdx - dudy, dudx + dvdy, 0.5 * (u_c * u_c + v_c * v_c)), fused):
+        same_by_block(f"diagnostics batch {name}", got, want.with_data(want.data.full_tensor()),
+                      rtol=METRIC_RTOL)
+    log(f"phase 11: diagnostics batch (apply_many of six ops, {tuple(u.data.shape)} f32 on a "
+        f"2 x 2 mesh): dv/dx, du/dy, du/dx, dv/dy, u_c, v_c == the single-device ops bit for "
+        f"bit, zeta, div, ke == sharded_cgrid_diagnostics within rtol {METRIC_RTOL} (the JAX "
+        f"test's); no kernel launched; collectives {cc} (the fused program's, the JAX "
+        f"budget; the six separate ops make {cc_chain}) [{card}]")
+
+
+def face_analysis_batch(g, xtt, th, u, v):
+    """Phase 8's face analysis as one ``g.apply_many`` of its eight ops by
+    name (the two theta diffs, the two vector diffs of zeta, the vector
+    diffs of the divergence and the vector interps, each component with
+    its partner), zeta and div formed from the results."""
+    t = xtt.GriddedArray(th, ("face", "y", "x"), name="theta")
+    gu = xtt.GriddedArray(u, ("face", "y", "xl"), name="u")
+    gv = xtt.GriddedArray(v, ("face", "yl", "x"), name="v")
+    dtx, dty, dvx, duy, dux, dvy, u_c, v_c = g.apply_many([
+        dict(op="diff", args=t, axis="X"),
+        dict(op="diff", args=t, axis="Y"),
+        dict(op="diff", args={"X": gv}, axis="X", other_component={"Y": gu}),
+        dict(op="diff", args={"Y": gu}, axis="Y", other_component={"X": gv}),
+        dict(op="diff", args={"X": gu}, axis="X", other_component={"Y": gv}),
+        dict(op="diff", args={"Y": gv}, axis="Y", other_component={"X": gu}),
+        dict(op="interp", args={"X": gu}, axis="X", to="center", other_component={"Y": gv}),
+        dict(op="interp", args={"Y": gv}, axis="Y", to="center", other_component={"X": gu}),
+    ])
+    return {"dtheta_dx": dtx, "dtheta_dy": dty, "zeta": dvx - duy, "div": dux + dvy,
+            "u_c": u_c, "v_c": v_c}
+
+
+def check_face_batch(xtt, build, dev, sgf, th, lu, lv, single, card):
+    """The face analysis as one apply_many on the face-sharded grid: every
+    result equals phase 8's single-device analysis value for value, no
+    kernel launched (the gridops ufuncs run on the padded blocks), the
+    JAX budget of collectives; logs the peak memory above what the caller
+    holds."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, launches, cc = counted_call(build, lambda: face_analysis_batch(sgf, xtt, th, lu, lv))
+    peak = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+    expect_counts("face analysis batch", launches, cc, no_kernel(build), FACE_BATCH_BUDGET)
+    for name, got in out.items():
+        same_faces(f"face analysis batch {name}", got, single[name])
+    log(f"phase 11: face analysis batch (apply_many of its eight ops, {tuple(th.shape)} f32, "
+        f"faces over {sgf.mesh.devices.size} shards) == phase 8's single-device face analysis "
+        f"value for value (NaN and infinities in the same places); no kernel launched; "
+        f"collectives {cc} (the JAX budget; the separate ops make 14 all_gathers); peak device "
+        f"memory {peak:.2f} GB above the inputs and the single-device results [{card}]")
 
 
 def face_analysis_2d(g, xtt, th, u, v):
@@ -2536,8 +2666,9 @@ def same_faces(label, got, want):
 def face_sharded_part(xtt, build, gen, dev, card, timed, n=NX):
     """Phase 11's face-sharded route: phase 8's inputs (one LLC level of 13
     n x n f32 faces, N(0, 1) with NaN and +-inf on face-edge cells) with the
-    face dim over four shards (16 faces with the dummy ones), and a face x
-    rows mesh of 2 x 2; each result against the single-device call."""
+    face dim over four shards (16 faces with the dummy ones), the face
+    analysis as eight separate ops and as one apply_many, and a face x rows
+    mesh of 2 x 2; each result against the single-device call."""
     from xgcm_tpu_torch import parallel as par
 
     torch.cuda.synchronize()
@@ -2560,6 +2691,7 @@ def face_sharded_part(xtt, build, gen, dev, card, timed, n=NX):
     for name, got in out.items():
         same_faces(f"face-sharded {name}", got, single[name])
     del out
+    check_face_batch(xtt, build, dev, sgf, th, lu, lv, single, card)
     fpd = -(-N_FACES // N_SHARDS)
     log(f"phase 11: face-sharded face analysis ({N_FACES} x {n} x {n} f32, {fpd} faces a shard "
         f"with {fpd * N_SHARDS - N_FACES} dummy faces; dtheta/dx, dtheta/dy, zeta, div "
@@ -2571,6 +2703,10 @@ def face_sharded_part(xtt, build, gen, dev, card, timed, n=NX):
     del single
     timed(f"face analysis (faces over {N_SHARDS})", lambda: face_analysis_2d(sgf, xtt, th, lu, lv),
           lambda: face_analysis(lgrid, xtt, th, lu, lv))
+    timed(f"face analysis batch (apply_many, faces over {N_SHARDS})",
+          lambda: face_analysis_batch(sgf, xtt, th, lu, lv),
+          lambda: face_analysis(lgrid, xtt, th, lu, lv),
+          other=("eight separate ops", lambda: face_analysis_2d(sgf, xtt, th, lu, lv)))
 
     # the face x rows decomposition: 7 faces a shard (one dummy), the rows
     # of each face in two halves

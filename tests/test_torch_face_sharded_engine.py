@@ -288,15 +288,83 @@ def test_sharded_inface_without_face_mapping_raises_clearly():
             boundary="fill")
 
 
-def test_apply_many_stays_refused_on_face_grids():
-    """``apply_many`` is not ported yet: it raises, on a face-sharded grid
-    as on any other, and gathers nothing."""
-    (_, _), (tgrid, ta) = _cs_with_z()
-    sg = tpar.ShardedGrid(tgrid, tpar.make_mesh({"f": 2, "zm": 4}, devices=CPU8),
-                          {"face": "f", "z": "zm"})
+def test_apply_many_on_face_grid_matches_jax():
+    """``apply_many`` on a face-sharded grid with Z over its own mesh axis
+    (faces over ``f``, Z over ``zm``) equals JAX's ``sharded_apply_many``
+    (under ``jax.jit``; the JAX tests' rtol = 1e-12 for a custom ufunc)
+    with JAX's collectives, and gathers nothing."""
+    from xgcm_tpu.utils import count_collectives as jax_count
+    from xgcm_tpu_torch.utils.inspection import count_collectives as torch_count
+
+    (jgrid, ja), (tgrid, ta) = _cs_with_z()
+    spec = {"face": "f", "z": "zm"}
+    kw = dict(func=smooth3, axis=[("Z",)], signature="(Z:center)->(Z:center)",
+              boundary_width={"Z": (1, 1)}, boundary="extend")
+    jsg = jpar.ShardedGrid(jgrid, jpar.make_mesh({"f": 2, "zm": 4}, devices=jax.devices()[:8]),
+                           spec)
+    sg = tpar.ShardedGrid(tgrid, tpar.make_mesh({"f": 2, "zm": 4}, devices=CPU8), spec)
+
+    def jfn(a):
+        [out] = jsg.apply_many([dict(args=xgcm_tpu.GriddedArray(a, ja.dims), **kw)])
+        return out.data
+
+    data = np.asarray(ja.data)
+    want = jax.jit(jfn)(data)
+    box = []
     tpar.reset_assembly_count()
-    with pytest.raises(NotImplementedError, match="apply_many"):
-        sg.apply_many([dict(func=smooth3, args=ta, axis=[("Z",)],
-                            signature="(Z:center)->(Z:center)",
-                            boundary_width={"Z": (1, 1)}, boundary="extend")])
+    cc = torch_count(lambda: box.extend(sg.apply_many([dict(args=ta, **kw)])))
     assert tpar.assembly_count() == 0
+    [got] = box
+    assert isinstance(got.data, tpar.ShardedTensor) and got.dims == ta.dims
+    assert_close(got, np.asarray(want), rtol=1e-12)
+    assert_values(got, jgrid.apply_as_grid_ufunc(smooth3, ja, **{
+        k: v for k, v in kw.items() if k != "func"}))
+    assert cc == jax_count(jfn, data)
+
+
+@pytest.mark.parametrize("mesh_key", ["f2", "f2r2", "f2c2", "f2r2c2"])
+@pytest.mark.parametrize("by", ["periodic", "fill", "extend", "extrapolate"])
+@pytest.mark.parametrize("bx", ["periodic", "fill", "extend", "extrapolate"])
+def test_one_allocation_prepad_equals_two_pads(mesh_key, by, bx):
+    """The face route's uniform pre-pad fills one tensor per block; it
+    equals the two successive pads it replaces (the local boundary
+    condition or ring halos per axis, the second axis reading the first's
+    corners) bit for bit, in either order, for float64 with NaN and for
+    uint16, with the same collectives."""
+    from xgcm_tpu_torch.ops.stencils import wrapping
+    from xgcm_tpu_torch.parallel.collectives import COLLECTIVES, coords
+    from xgcm_tpu_torch.parallel.face_sharded import _prepad
+    from xgcm_tpu_torch.parallel.halo import pad_axis_local_or_ring
+
+    axes = {"f2": {"f": 2}, "f2r2": {"f": 2, "r": 2}, "f2c2": {"f": 2, "c": 2},
+            "f2r2c2": {"f": 2, "r": 2, "c": 2}}[mesh_key]
+    mesh = tpar.make_mesh(axes, devices=CPU8)
+    steps = {"y": (-2, "r" if "r" in axes else None, by, 1.5),
+             "x": (-1, "c" if "c" in axes else None, bx, 2.5)}
+    rng = np.random.RandomState(5)
+    for dtype in (torch.float64, torch.uint16):
+        blocks = np.empty(mesh.devices.shape, dtype=object)
+        for c in coords(mesh):
+            a = rng.randn(2, 3, 4, 5) * 50
+            a[0, 0, 0, 0] = np.nan
+            blocks[c] = (torch.from_numpy(a) if dtype == torch.float64
+                         else torch.from_numpy(np.nan_to_num(a)).to(torch.int64).to(dtype))
+        for w in (1, 2):
+            for order in (("y", "x"), ("x", "y")):
+                COLLECTIVES.clear()
+                got = _prepad(blocks, w, mesh, [steps[k] for k in order])
+                got_cc = dict(COLLECTIVES)
+                COLLECTIVES.clear()
+                want = blocks
+                for k in order:
+                    axis, mesh_axis, bnd, fv = steps[k]
+                    want = pad_axis_local_or_ring(want, axis, (w, w), mesh, mesh_axis, bnd, fv)
+                assert got_cc == dict(COLLECTIVES)
+                for c in coords(mesh):
+                    g, e = wrapping(got[c]), wrapping(want[c])
+                    assert got[c].dtype == want[c].dtype and g.shape == e.shape
+                    if g.is_floating_point():
+                        assert torch.equal(g.isnan(), e.isnan())
+                        assert torch.equal(torch.signbit(g), torch.signbit(e))
+                        g, e = g.nan_to_num(), e.nan_to_num()
+                    assert torch.equal(g, e), (dtype, w, order, c)

@@ -680,14 +680,40 @@ def test_sharded_layer_on_card(cuda):
     """chip_smoke's phase 11 on a 6 x 16 x 24 grid, logical shards of the
     card: the ring route (E once per block, no A) and the sharded cumsum,
     the metric route, the batch route (A once per block), the sharded
-    diagnostics on a 2 x 2 mesh and the per-shard transforms (C, G, F, H
-    once per block), each against the single-device call on the card, every
+    diagnostics and their apply_many batch on a 2 x 2 mesh, the per-shard
+    transforms (C, G, F, H once per block) and the face-sharded route with
+    its apply_many batch, each against the single-device call on the card, every
     block of every result on the card, each collective count the JAX
     budget."""
     g = torch.Generator(device=cuda).manual_seed(34)
     nz, ny, nx = chip_smoke.SHARDED_SMALL
     chip_smoke.sharded_phase(xtt, build, g, torch.device("cuda", 0), "test", nz=nz, ny=ny,
                              nx=nx, timing=False)
+
+
+@pytest.mark.cuda
+def test_apply_many_on_card(cuda):
+    """chip_smoke's apply_many checks at a small size on four logical shards
+    of the card: the face analysis's eight ops in one batch on a 13-face
+    LLC grid of 24 x 24 faces (16 with the dummy ones), and the six-op
+    diagnostics batch on a 2 x 2 mesh; each against the single-device ops
+    on the card, no kernel launched, the JAX budget of collectives."""
+    g = torch.Generator(device=cuda).manual_seed(43)
+    dev = torch.device("cuda", 0)
+    _, lgrid = xtt.grids.llc_grid(n=24)
+    th, u, v = (chip_smoke.edge_nonfinite(torch.randn((13, 24, 24), generator=g, device=dev))
+                for _ in range(3))
+    single = chip_smoke.face_analysis(lgrid, xtt, th, u, v)
+    sgf = par.ShardedGrid(lgrid, par.make_mesh({"f": 4}, devices=[dev] * 4), {"face": "f"})
+    chip_smoke.check_face_batch(xtt, build, dev, sgf, th, u, v, single, "test")
+    nz, ny, nx = chip_smoke.SHARDED_SMALL
+    grid = chip_smoke.budget_grid(xtt, nx, ny, nz)
+    gu = xtt.GriddedArray(torch.randn((ny, nx), generator=g, device=dev), ("yc", "xg"), name="u")
+    gv = xtt.GriddedArray(torch.randn((ny, nx), generator=g, device=dev), ("yg", "xc"), name="v")
+    mesh2 = par.make_mesh({"y": 2, "x": 2}, devices=[dev] * 4)
+    m2 = {"xc": "x", "xg": "x", "yc": "y", "yg": "y"}
+    chip_smoke.check_diagnostics_batch(xtt, build, grid, par.ShardedGrid(grid, mesh2, m2), gu,
+                                       gv, mesh2, m2, "test")
 
 
 @pytest.mark.cuda

@@ -114,3 +114,23 @@ def test_wrong_staggering_rejected():
     mesh = tpar.make_mesh({"x": 4}, devices=CPU8)
     with pytest.raises(ValueError, match="C-grid staggering"):
         tdiag(tg, u, v, mesh, {"xc": "x", "xg": "x"})
+
+
+def test_face_grids_are_sent_to_apply_many():
+    """Ring halos cannot serve face connections: both packages refuse a
+    face grid with the same message, which sends the caller to
+    ShardedGrid.apply_many."""
+    from tests.datasets import cubed_sphere_dataset
+
+    ds, fc = cubed_sphere_dataset(n=4)
+    msgs = []
+    for pkg, diag, mesh in ((xgcm_tpu, jdiag, jpar.make_mesh({"f": 2}, devices=jax.devices()[:2])),
+                            (xtt, tdiag, tpar.make_mesh({"f": 2}, devices=CPU8))):
+        data = ds if pkg is xgcm_tpu else xtt.from_numpy_dataset(ds)
+        grid = pkg.Grid(data, face_connections=fc)
+        u = pkg.GriddedArray(np.zeros((6, 4, 4)), ("face", "y", "xl"))
+        v = pkg.GriddedArray(np.zeros((6, 4, 4)), ("face", "yl", "x"))
+        with pytest.raises(NotImplementedError, match="ShardedGrid.apply_many") as info:
+            diag(grid, u, v, mesh, {"face": "f"})
+        msgs.append(str(info.value))
+    assert msgs[0] == msgs[1]

@@ -209,8 +209,8 @@ def test_face_sharded_ops_are_refused():
     ``ShardedGrid`` ops and ``apply_as_grid_ufunc`` and ``sharded_op`` on
     a face-mapped cubed sphere equal JAX's ``sharded_face_op`` value for
     value, assembling nothing on the way.  What JAX refuses stays refused:
-    the shifting cumsum across axis-swapping connections, and
-    ``apply_many`` (not ported yet)."""
+    the shifting cumsum across axis-swapping connections.  A one-op
+    ``apply_many`` equals ``diff`` and assembles nothing either."""
     ds, fc = cubed_sphere_dataset(n=8)
     tds = xtt.from_numpy_dataset(ds)
     grid = xtt.Grid(tds, face_connections=fc, periodic=False)
@@ -236,9 +236,10 @@ def test_face_sharded_ops_are_refused():
         with pytest.raises(NotImplementedError, match="swap"):
             g.cumsum(sh if g is sg else xgcm_tpu.GriddedArray(a, ("face", "y", "x")), "X",
                      boundary="fill")
-    with pytest.raises(NotImplementedError, match="apply_many"):
-        sg.apply_many([])
+    [many] = sg.apply_many([dict(op="diff", args=sh, axis="X", boundary="fill")])
+    assert isinstance(many.data, tpar.ShardedTensor)
     assert sharded_tensor.assembly_count() == 0
+    np.testing.assert_array_equal(to_numpy(many.data.full_tensor()), np.asarray(want))
 
 
 # ------------------------------------------------------ test_sharding_2d.py
@@ -736,7 +737,7 @@ def test_parallel_modules_import_first_without_jax():
             "xgcm_tpu_torch.parallel.sharded_tensor", "xgcm_tpu_torch.parallel.collectives",
             "xgcm_tpu_torch.parallel.halo", "xgcm_tpu_torch.parallel.sharded_ufunc",
             "xgcm_tpu_torch.parallel.sharded_grid", "xgcm_tpu_torch.parallel.diagnostics",
-            "xgcm_tpu_torch.utils.inspection")
+            "xgcm_tpu_torch.parallel.apply_many", "xgcm_tpu_torch.utils.inspection")
     check = ("bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'xgcm_tpu')]; "
              "assert not bad, bad")
     procs = [subprocess.Popen([sys.executable, "-c", f"import sys, {mod}; {check}"],
@@ -754,3 +755,32 @@ def test_dryrun_multichip_on_cpu():
         warnings.simplefilter("error")
         dryrun_multichip(8, devices=CPU8)
     dryrun_multichip(3, devices=CPU8)
+
+
+@pytest.mark.parametrize("n_shards", [4, 8])
+def test_dryrun_multichip_runs_the_batch_route(monkeypatch, n_shards):
+    """Route 5: one ``sharded_apply_many`` of a diff along X and an interp
+    along Y of one cubed-sphere field (dummy-padded on 4 shards, face x
+    rows x cols on 8), checked inside against the single-device ops; a
+    batch that is wrong fails the run."""
+    from xgcm_tpu_torch import entry
+
+    calls = []
+    real = tpar.sharded_apply_many
+
+    def spy(specs, **kw):
+        out = real(specs, **kw)
+        calls.append([s["func"].__name__ for s in specs])
+        return out
+
+    monkeypatch.setattr(tpar, "sharded_apply_many", spy)
+    entry.dryrun_multichip(n_shards, devices=CPU8)
+    assert len(calls) == 1 and len(calls[0]) == 2
+
+    def wrong(specs, **kw):
+        outs = real(specs, **kw)
+        return [outs[0], outs[0]]
+
+    monkeypatch.setattr(tpar, "sharded_apply_many", wrong)
+    with pytest.raises(AssertionError, match="apply_many"):
+        entry.dryrun_multichip(n_shards, devices=CPU8)

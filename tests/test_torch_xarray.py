@@ -11,8 +11,7 @@ trips against the native path); sums and transforms across the two
 packages use the tolerances of their own parity tests (rtol 1e-7 for
 ``integrate``/``average``, 1e-12 for float64 transforms).
 
-Cases: every case of tests/test_xarray_adapter_stub.py but the sharded
-grid's, the two seeded sweeps of tests/test_fuzz_adapter.py, each entry
+Cases: every case of tests/test_xarray_adapter_stub.py, the two seeded sweeps of tests/test_fuzz_adapter.py, each entry
 point's xarray-in/xarray-out contract, and the port's bfloat16 rule.
 """
 
@@ -355,6 +354,32 @@ def test_ops_accept_dataarrays_directly(xr):
 
     r_j, r_t = _both(case)
     _same(r_t, r_j)
+
+
+def test_sharded_grid_accepts_dataarrays(xr):
+    """A ShardedGrid op and ``apply_many`` take an ``xr.DataArray`` as its
+    native GriddedArray; the batch equals the explicit single op, in both
+    packages, and the two packages agree bit for bit."""
+    import jax
+
+    def case(pkg):
+        par = importlib.import_module(pkg.__name__ + ".parallel")
+        devices = jax.devices()[:8] if pkg is xgcm_tpu else [torch.device("cpu")] * 8
+        xds = _xds(xr)
+        grid = pkg.Grid(xds)
+        sg = par.ShardedGrid(grid, par.make_mesh({"xm": 4, "ym": 2}, devices=devices),
+                             {"XC": "xm", "XG": "xm", "YC": "ym", "YG": "ym"})
+        implicit = sg.diff(xds["temp"], "X")
+        explicit = sg.diff(_adapter(pkg).dataarray_from_xarray(xds["temp"]), "X")
+        np.testing.assert_array_equal(to_numpy(implicit), to_numpy(explicit))
+        [am] = sg.apply_many([dict(op="diff", args=xds["temp"], axis="X")])
+        assert isinstance(am, pkg.GriddedArray) and am.dims == explicit.dims
+        np.testing.assert_array_equal(to_numpy(am), to_numpy(explicit))
+        return to_numpy(am), to_numpy(implicit)
+
+    r_j, r_t = _both(case)
+    for a, b in zip(r_t, r_j):
+        assert_bitwise(a, b)
 
 
 def test_xarray_out_coord_reattachment(xr):

@@ -80,15 +80,19 @@ def dryrun_multichip(n_shards: int, devices=None) -> None:
     shapes, each checked against the single-device call: the ring-halo diff
     (kernel E per block on the card), the sharded cumsum, the face-sharded
     vector diff and the dummy-padded 13-face LLC diff (kernel E per block),
-    and the per-shard ``transform_multi`` (kernel F per block).
+    a batch of a diff and an interp of one cubed-sphere field in one
+    ``sharded_apply_many`` (the gridops ufuncs on padded blocks), and the
+    per-shard ``transform_multi`` (kernel F per block).
     ``devices`` defaults to ``n_shards`` logical shards on the default
     device; raises on a mismatch."""
+    from .core import gridops
     from .core.device import get_default_device
     from .grids import cubed_sphere_grid, llc_grid
     from .parallel import (
         ShardedGrid,
         make_mesh,
         shard_gridded,
+        sharded_apply_many,
         sharded_cumsum,
         sharded_face_op,
         sharded_op,
@@ -160,6 +164,20 @@ def dryrun_multichip(n_shards: int, devices=None) -> None:
                               boundary="fill")
     check(llc_out, grid_llc.diff(llc_field, "Y", boundary="fill"), 1e-5,
           "LLC-13 dummy-padded diff")
+
+    # route 5: a batch of ops as one shard program, one shared halo
+    # exchange for a diff along X and an interp along Y of one field
+    f5 = GriddedArray(rng.rand(6, 8, 8).astype(np.float32), ("face", "y", "x"), name="c",
+                      device=dev)
+    sh5 = shard_gridded(f5, face_mesh, shard_spec, uneven_ok=("face",))
+    specs = [dict(func=op.ufunc, args=[sh5], axis=[(axis,)], signature=op.signature,
+                  boundary_width=op.boundary_width, boundary="fill")
+             for op, axis in ((gridops.diff_center_to_left, "X"),
+                              (gridops.interp_center_to_left, "Y"))]
+    b_diff, b_interp = sharded_apply_many(specs, grid=grid_cs, mesh=face_mesh,
+                                          dim_to_mesh_axis=face_spec)
+    check(b_diff, grid_cs.diff(f5, "X", boundary="fill"), 1e-5, "apply_many diff X")
+    check(b_interp, grid_cs.interp(f5, "Y", boundary="fill"), 1e-5, "apply_many interp Y")
 
     # route 6: multi-variable vertical transform, per shard, the columns
     # sharded across the mesh

@@ -1,9 +1,10 @@
 """The sharded layer, single-controller: one process holds a :class:`Mesh`
 of ``torch.device`` (a device may repeat: logical shards on one card) and
 every sharded array as a :class:`ShardedTensor` of blocks; a collective is
-a copy between blocks (:mod:`.collectives`).  ``apply_many`` is not ported
-yet."""
+a copy between blocks (:mod:`.collectives`).  :func:`sharded_apply_many`
+runs a batch of grid ufuncs with one halo exchange per distinct input."""
 
+from .apply_many import sharded_apply_many  # noqa: F401
 from .collectives import all_gather, ppermute, psum, shard_map  # noqa: F401
 from .diagnostics import sharded_cgrid_diagnostics  # noqa: F401
 from .face_sharded import (  # noqa: F401

@@ -49,7 +49,8 @@ def sharded_cgrid_diagnostics(
     if grid._face_connections is not None:
         raise NotImplementedError(
             "sharded_cgrid_diagnostics uses ring halos, which cannot serve "
-            "face-connected boundaries"
+            "face-connected boundaries; batch the ops through "
+            "ShardedGrid.apply_many on face grids instead"
         )
     ax_x = grid.axes[x_axis]
     ax_y = grid.axes[y_axis]

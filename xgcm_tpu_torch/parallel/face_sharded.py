@@ -62,7 +62,7 @@ from ..core.topology import FaceHaloPlan, compile_face_plan
 from ..ops.kernels.face_shift import face_shift
 from ..ops.stencils import cumsum, wrapping
 from .collectives import all_gather, coords, map_blocks, psum
-from .halo import _SHARDABLE_WIDTHS, pad_axis_local_or_ring, ring_halos, ring_kernel_ok
+from .halo import _SHARDABLE_WIDTHS, ring_halos, ring_kernel_ok
 from .mesh import Mesh, partition_spec, to_sharded
 from .sharded_tensor import ShardedTensor, _block_index
 
@@ -316,22 +316,35 @@ class _Halos:
                  vector_axis_code: Optional[int]):
         self.plan, self.lay, self.w, self.bc = plan, lay, w, bc
         self.vector_axis_code = vector_axis_code
+        self._extended = {}
+
+    def _extended_pool(self, pool: torch.Tensor, L_t: int, along_x: bool) -> torch.Tensor:
+        """The strips of ``pool``'s x edges (sides 0, 1) or y edges (2, 3)
+        cut to ``L_t`` and extended tangentially by ``w`` on both sides,
+        every face at once: (..., F, 2, w, L_t + 2w).  The extension takes
+        the basic BC of the source side's tangential axis."""
+        key = (id(pool), L_t, along_x)
+        if key not in self._extended:
+            part = pool[..., :, 2:4, :, :L_t] if along_x else pool[..., :, 0:2, :, :L_t]
+            mode, fv = self.bc["x" if along_x else "y"]
+            # the pool rides along so that its id stays its own
+            self._extended[key] = (pool, _pad_axis(part, part.ndim - 1, (self.w, self.w), mode,
+                                                   fv))
+        return self._extended[key][1]
 
     def strip(self, pool_self, pool_partner, g: int, side: int, extend: bool = True):
         """The canonical (..., w, L_t + 2w) halo strip of global face g's
         side: inward-offset rows, tangential from -w to L_t + w (from 0 to
         L_t without ``extend``)."""
-        plan, w = self.plan, self.w
+        plan = self.plan
         sf, ss = int(plan.src_face[g, side]), int(plan.src_side[g, side])
         pool = pool_partner if pool_partner is not None and plan.swap[g, side] else pool_self
         L_t = self.lay.ny if side < 2 else self.lay.nx
-        strip = pool[..., sf, ss, :, :L_t]
-        dtype = strip.dtype
         if extend:
-            # the tangential extension takes the basic BC of the SOURCE
-            # side's tangential axis
-            mode, fv = self.bc["y" if ss < 2 else "x"]
-            strip = _pad_axis(strip, strip.ndim - 1, (w, w), mode, fv)
+            strip = self._extended_pool(pool, L_t, ss >= 2)[..., sf, ss % 2, :, :]
+        else:
+            strip = pool[..., sf, ss, :, :L_t]
+        dtype = strip.dtype
         if plan.tang_flip[g, side]:
             strip = wrapping(strip).flip(-1).view(dtype)
         if self.vector_axis_code is not None:
@@ -339,6 +352,68 @@ class _Halos:
             if sign[g, side] < 0:
                 strip = torch.neg(wrapping(strip)).view(dtype)
         return strip
+
+
+def _pad_lines(src: torch.Tensor, axis: int, w: int, mode: str, fv: float):
+    """(before, after): the ``w``-wide local pads of ``src`` along
+    ``axis`` in ``mode``, as :func:`~xgcm_tpu_torch.core.padding._pad_axis`
+    gives them, computed from the edge lines they depend on (views of
+    ``src`` for a wrap no wider than the axis)."""
+    n = src.shape[axis]
+    if mode == "constant":
+        shape = list(src.shape)
+        shape[axis] = w
+        line = torch.full(shape, fv, dtype=src.dtype, device=src.device)
+        return line, line
+    if mode == "wrap" and w <= n:
+        return src.narrow(axis, n - w, w), src.narrow(axis, 0, w)
+    if mode == "wrap":
+        padded = _pad_axis(src, axis, (w, w), mode, fv)
+        return padded.narrow(axis, 0, w), padded.narrow(axis, w + n, w)
+    k = min(2, n)
+    before = _pad_axis(src.narrow(axis, 0, k), axis, (w, 0), mode, fv).narrow(axis, 0, w)
+    after = _pad_axis(src.narrow(axis, n - k, k), axis, (0, w), mode, fv).narrow(axis, k, w)
+    return before, after
+
+
+def _prepad(blocks: np.ndarray, w: int, mesh: Mesh, steps) -> np.ndarray:
+    """Every (..., ny, nx) block padded ``w`` wide on both sides of its last
+    two axes into one new tensor, one axis after the other as ``steps``
+    (axis, mesh axis or None, boundary, fill value) order them: the
+    second axis's pad reads the first's, corners included, as two
+    successive pads would.  A mesh-mapped axis takes ring halos, a local
+    one its boundary condition.  The values equal two successive
+    :func:`~.halo.pad_axis_local_or_ring` calls; the block is copied once
+    where those concatenate twice."""
+    ny, nx = blocks.flat[0].shape[-2:]
+    out = np.empty(blocks.shape, dtype=object)
+    for c in coords(mesh):
+        b = blocks[c]
+        o = b.new_empty(b.shape[:-2] + (ny + 2 * w, nx + 2 * w))
+        wrapping(o)[..., w:w + ny, w:w + nx] = wrapping(b)
+        out[c] = o
+    extent = {-2: (w, ny), -1: (w, nx)}  # (start, length) of each axis's filled part
+    for axis, mesh_axis, boundary, fv in steps:
+        other = -1 if axis == -2 else -2
+        start, n = extent[axis]
+        o0, on = extent[other]
+        src = map_blocks(lambda o: o.narrow(axis, start, n).narrow(other, o0, on), out,
+                         mesh=mesh)
+        if mesh_axis is not None:
+            before, after = ring_halos(src, axis, (w, w), mesh, mesh_axis, boundary, fv)
+        else:
+            mode = BOUNDARY_TO_PAD_MODE[boundary]
+            lines = map_blocks(lambda b: _pad_lines(b, axis, w, mode,
+                                                    fv if mode == "constant" else 0.0),
+                               src, mesh=mesh)
+            before = map_blocks(lambda t: t[0], lines, mesh=mesh)
+            after = map_blocks(lambda t: t[1], lines, mesh=mesh)
+        for c in coords(mesh):
+            o = out[c]
+            for pos, halo in ((0, before[c]), (start + n, after[c])):
+                wrapping(o).narrow(axis, pos, w).narrow(other, o0, on).copy_(wrapping(halo))
+        extent[axis] = (0, n + 2 * w)
+    return out
 
 
 def _bc(boundary, fill_value) -> Tuple[str, float]:
@@ -400,14 +475,9 @@ def face_halo_pad_widths(
         prepad_order = ("y", "x")
     else:
         prepad_order = ("x", "y") if x_name < y_name else ("y", "x")
-    out = blocks
-    for which in prepad_order:
-        if which == "y":
-            out = pad_axis_local_or_ring(out, -2, (w, w), mesh, interior_mesh_axis, boundary_y,
-                                         float(fill_value_y))
-        else:
-            out = pad_axis_local_or_ring(out, -1, (w, w), mesh, interior_mesh_axis_x,
-                                         boundary_x, float(fill_value_x))
+    steps = {"y": (-2, interior_mesh_axis, boundary_y, float(fill_value_y)),
+             "x": (-1, interior_mesh_axis_x, boundary_x, float(fill_value_x))}
+    out = _prepad(blocks, w, mesh, [steps[which] for which in prepad_order])
 
     halos = _Halos(plan, lay, w, bc, vector_axis_code)
     replace_order = ("x", "y") if x_name < y_name else ("y", "x")
@@ -416,35 +486,40 @@ def face_halo_pad_widths(
     lwy, rwy = widths_y
     result = np.empty(blocks.shape, dtype=object)
     for c in coords(mesh):
-        padded = out[c]  # a new tensor (the pre-pad concatenates): written in place
+        padded = out[c]  # a new tensor (the pre-pad's): written in place
         dtype = padded.dtype
         target = wrapping(padded)
         p, q = lay.p(c), lay.q(c)
         ps, pp = pool_self[c], None if pool_partner is None else pool_partner[c]
-        for fl in range(lay.fpd):
-            g = lay.face0(c) + fl
-            face = target[..., fl, :, :]
-            for which in replace_order:
+        face0 = lay.face0(c)
+        # a side of zero width lies outside the result: its halo is not cut
+        sides = {"x": ((0, q == 0 and lwx > 0), (1, q == lay.Q - 1 and rwx > 0)),
+                 "y": ((2, p == 0 and lwy > 0), (3, p == lay.P - 1 and rwy > 0))}
+        for which in replace_order:
+            # faces are disjoint: every face's x sides before every face's
+            # y sides is the single-device assembly's order face by face
+            for side, owner in sides[which]:
+                fls = [fl for fl in range(lay.fpd) if owner and plan.connected[face0 + fl, side]]
+                if not fls:
+                    continue
+                # the faces' strips stacked on the face dim: (..., k, w, L + 2w)
+                segs = torch.stack([wrapping(halos.strip(ps, pp, face0 + fl, side))
+                                    for fl in fls], dim=-3)
                 if which == "x":
-                    for side, owner in ((0, q == 0), (1, q == lay.Q - 1)):
-                        if not (owner and plan.connected[g, side]):
-                            continue
-                        seg = wrapping(halos.strip(ps, pp, g, side))
-                        seg = seg[..., p * ny_loc: p * ny_loc + ny_loc + 2 * w]
-                        if side == 0:
-                            face[..., :, 0:w] = seg.flip(-2).transpose(-1, -2)
-                        else:
-                            face[..., :, w + nx_loc: 2 * w + nx_loc] = seg.transpose(-1, -2)
+                    segs = segs[..., p * ny_loc: p * ny_loc + ny_loc + 2 * w]
+                    segs = (segs.flip(-2) if side == 0 else segs).transpose(-1, -2)
+                    cols = slice(0, w) if side == 0 else slice(w + nx_loc, 2 * w + nx_loc)
+                    dest = target[..., :, cols]
                 else:
-                    for side, owner in ((2, p == 0), (3, p == lay.P - 1)):
-                        if not (owner and plan.connected[g, side]):
-                            continue
-                        seg = wrapping(halos.strip(ps, pp, g, side))
-                        seg = seg[..., q * nx_loc: q * nx_loc + nx_loc + 2 * w]
-                        if side == 2:
-                            face[..., 0:w, :] = seg.flip(-2)
-                        else:
-                            face[..., w + ny_loc: 2 * w + ny_loc, :] = seg
+                    segs = segs[..., q * nx_loc: q * nx_loc + nx_loc + 2 * w]
+                    segs = segs.flip(-2) if side == 2 else segs
+                    rows = slice(0, w) if side == 2 else slice(w + ny_loc, 2 * w + ny_loc)
+                    dest = target[..., rows, :]
+                if fls == list(range(fls[0], fls[0] + len(fls))):
+                    dest.narrow(-3, fls[0], len(fls)).copy_(segs)
+                else:
+                    for i, fl in enumerate(fls):
+                        dest.select(-3, fl).copy_(segs.select(-3, i))
         result[c] = target.view(dtype)[..., w - lwy: w + ny_loc + rwy,
                                        w - lwx: w + nx_loc + rwx]
     return result

@@ -20,8 +20,8 @@ takes one of four routes:
   by the mapping after — the gather a GSPMD partitioner makes.
 
 Transforms run per shard over the column dims (kernels C, G, F and H per
-block).  ``apply_many`` is not ported yet and raises
-``NotImplementedError``; it does not gather.
+block).  :meth:`ShardedGrid.apply_many` runs a batch of ops as one shard
+program with one halo exchange per distinct input (:mod:`.apply_many`).
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from ..core import gridops
 from ..core.dataarray import GriddedArray
 from ..core.grid import Grid, _select_grid_ufunc
 from ..core.signature import GridUFuncSignature
+from .apply_many import sharded_apply_many
 from .collectives import coords, map_blocks
 from .halo import _SHARDABLE_WIDTHS, ring_kernel_ok, sharded_cumsum, sharded_op
 from .mesh import Mesh, partition_spec, shard_gridded, to_sharded
@@ -432,12 +433,12 @@ class ShardedGrid:
         return self._fall_through(call, *args)
 
     def apply_many(self, op_specs):
-        """A batch of grid-ufunc applications with shared halo exchange:
-        not ported to xgcm_tpu_torch yet."""
-        raise NotImplementedError(
-            "ShardedGrid.apply_many (sharded_apply_many: one shard program with "
-            "shared halo exchange) is not ported to xgcm_tpu_torch yet"
-        )
+        """A batch of grid-ufunc applications as one shard program with
+        shared halo exchange: each distinct input is padded once at the
+        widest halo any op asks for (see
+        :func:`~.apply_many.sharded_apply_many`)."""
+        return sharded_apply_many(op_specs, grid=self.grid, mesh=self.mesh,
+                                  dim_to_mesh_axis=self.dim_to_mesh_axis)
 
     # ---------------------------------------------- metric-weighted calculus
     def derivative(self, da, axis, **kwargs):

@@ -170,6 +170,77 @@ def _output_dims(arg_dims, in_core_dims, out_core_dims, sig):
     return outs
 
 
+def _pad_blocks(arr: GriddedArray, blocks: np.ndarray, widths, *, mesh: Mesh, local_grid: Grid,
+                fs: Optional[FaceSetup], axis_to_mesh_axis, bc, fv, vector_axis=None,
+                partner=None) -> np.ndarray:
+    """Every shard's block of ``arr`` as a local GriddedArray, padded at
+    ``widths`` (grid-axis name -> (left, right)): the local boundary
+    padding on unsharded axes first, then ring halos on the sharded ones
+    (commutative for pointwise BC modes), then on a face-sharded grid
+    (``fs``) the strip exchange on the two in-face axes (``partner``: the
+    other vector component's GriddedArray and blocks).  ``bc`` and ``fv``
+    are resolved per axis against the real grid."""
+    face_axes = () if fs is None else (fs.x_axis, fs.y_axis)
+    other_bw = {n: w for n, w in widths.items() if n not in face_axes}
+    local_bw = {n: w for n, w in other_bw.items() if n not in axis_to_mesh_axis}
+    ring_bw = {n: w for n, w in other_bw.items()
+               if n in axis_to_mesh_axis and tuple(w) != (0, 0)}
+    local = np.empty(blocks.shape, dtype=object)
+    for c in coords(mesh):
+        da = GriddedArray(blocks[c], arr.dims, name=arr.name)
+        if any(tuple(w) != (0, 0) for w in local_bw.values()):
+            da = pad(da, grid=local_grid, boundary_width=local_bw, boundary=bc, fill_value=fv)
+        local[c] = da
+    for n, w in ring_bw.items():
+        dim = local_grid.axes[n]._get_position_name(local.flat[0])[1]
+        num = local.flat[0].get_axis_num(dim)
+        data = np.empty(blocks.shape, dtype=object)
+        for c in coords(mesh):
+            data[c] = local[c].data
+        data = ring_halo_pad(data, num, tuple(w), mesh, axis_to_mesh_axis[n], bc[n], float(fv[n]))
+        for c in coords(mesh):
+            local[c] = local[c].with_data(data[c])
+    if fs is None:
+        return local
+    face_bw = (tuple(widths.get(fs.x_axis, (0, 0))), tuple(widths.get(fs.y_axis, (0, 0))))
+    if face_bw == ((0, 0), (0, 0)):
+        return local
+
+    def arranged(garrs):
+        first = garrs.flat[0]
+        ydim = local_grid.axes[fs.y_axis]._get_position_name(first)[1]
+        xdim = local_grid.axes[fs.x_axis]._get_position_name(first)[1]
+        rest = [d for d in first.dims if d not in (fs.facedim, ydim, xdim)]
+        order = (*rest, fs.facedim, ydim, xdim)
+        data = np.empty(garrs.shape, dtype=object)
+        for c in coords(mesh):
+            data[c] = garrs[c].transpose(*order).data
+        return data, order
+
+    data, order = arranged(local)
+    partner_data = None
+    vec_code = None
+    if vector_axis is not None:
+        if partner is None:
+            raise ValueError("Padding vector components requires `other_component` input.")
+        vec_code = 0 if vector_axis == fs.x_axis else 1
+        p_arr, p_blocks = partner
+        p_local = np.empty(p_blocks.shape, dtype=object)
+        for c in coords(mesh):
+            p_local[c] = GriddedArray(p_blocks[c], p_arr.dims, name=p_arr.name)
+        partner_data, _ = arranged(p_local)
+    padded = face_halo_pad_widths(
+        data, mesh, fs.plan, face_bw[0], face_bw[1], fs.face_mesh_axis,
+        bc[fs.x_axis], bc[fs.y_axis], float(fv[fs.x_axis]), float(fv[fs.y_axis]),
+        fs.x_axis, fs.y_axis, interior_mesh_axis=fs.interior_mesh_axis,
+        partner_blocks=partner_data, vector_axis_code=vec_code,
+        interior_mesh_axis_x=fs.interior_mesh_axis_x,
+    )
+    for c in coords(mesh):
+        local[c] = GriddedArray(padded[c], order, name=arr.name)
+    return local
+
+
 def sharded_apply_as_grid_ufunc(
     func: Callable,
     *args,
@@ -302,76 +373,8 @@ def sharded_apply_as_grid_ufunc(
     out_specs = tuple(partition_spec(dims, full_map) for dims in out_dims)
 
     fs = face_setup
-    face_axes = () if fs is None else (fs.x_axis, fs.y_axis)
-    other_bw = {n: w for n, w in bw.items() if n not in face_axes}
-    local_bw = {n: w for n, w in other_bw.items() if n not in axis_to_mesh_axis}
-    ring_bw = {n: w for n, w in other_bw.items()
-               if n in axis_to_mesh_axis and tuple(w) != (0, 0)}
-    face_bw = None
-    if fs is not None:
-        face_bw = (tuple(bw.get(fs.x_axis, (0, 0))), tuple(bw.get(fs.y_axis, (0, 0))))
-
-    def padded_blocks(arr: GriddedArray, blocks: np.ndarray, vector_axis=None,
-                      partner=None) -> np.ndarray:
-        """Every shard's block of ``arr`` as a local GriddedArray, padded:
-        the local boundary padding on unsharded axes first, then ring
-        halos on the sharded ones (commutative for pointwise BC modes),
-        then on a face-sharded grid the strip exchange on the two in-face
-        axes (``partner``: the other vector component's GriddedArray and
-        blocks)."""
-        local = np.empty(blocks.shape, dtype=object)
-        for c in coords(mesh):
-            da = GriddedArray(blocks[c], arr.dims, name=arr.name)
-            if any(tuple(w) != (0, 0) for w in local_bw.values()):
-                da = pad(da, grid=local_grid, boundary_width=local_bw, boundary=bc,
-                         fill_value=fv)
-            local[c] = da
-        for n, w in ring_bw.items():
-            dim = local_grid.axes[n]._get_position_name(local.flat[0])[1]
-            num = local.flat[0].get_axis_num(dim)
-            data = np.empty(blocks.shape, dtype=object)
-            for c in coords(mesh):
-                data[c] = local[c].data
-            data = ring_halo_pad(data, num, tuple(w), mesh, axis_to_mesh_axis[n], bc[n],
-                                 float(fv[n]))
-            for c in coords(mesh):
-                local[c] = local[c].with_data(data[c])
-        if fs is None or face_bw == ((0, 0), (0, 0)):
-            return local
-
-        def arranged(garrs):
-            first = garrs.flat[0]
-            ydim = local_grid.axes[fs.y_axis]._get_position_name(first)[1]
-            xdim = local_grid.axes[fs.x_axis]._get_position_name(first)[1]
-            rest = [d for d in first.dims if d not in (fs.facedim, ydim, xdim)]
-            order = (*rest, fs.facedim, ydim, xdim)
-            data = np.empty(garrs.shape, dtype=object)
-            for c in coords(mesh):
-                data[c] = garrs[c].transpose(*order).data
-            return data, order
-
-        data, order = arranged(local)
-        partner_data = None
-        vec_code = None
-        if vector_axis is not None:
-            if partner is None:
-                raise ValueError("Padding vector components requires `other_component` input.")
-            vec_code = 0 if vector_axis == fs.x_axis else 1
-            p_arr, p_blocks = partner
-            p_local = np.empty(p_blocks.shape, dtype=object)
-            for c in coords(mesh):
-                p_local[c] = GriddedArray(p_blocks[c], p_arr.dims, name=p_arr.name)
-            partner_data, _ = arranged(p_local)
-        padded = face_halo_pad_widths(
-            data, mesh, fs.plan, face_bw[0], face_bw[1], fs.face_mesh_axis,
-            bc[fs.x_axis], bc[fs.y_axis], float(fv[fs.x_axis]), float(fv[fs.y_axis]),
-            fs.x_axis, fs.y_axis, interior_mesh_axis=fs.interior_mesh_axis,
-            partner_blocks=partner_data, vector_axis_code=vec_code,
-            interior_mesh_axis_x=fs.interior_mesh_axis_x,
-        )
-        for c in coords(mesh):
-            local[c] = GriddedArray(padded[c], order, name=arr.name)
-        return local
+    pad_context = dict(mesh=mesh, local_grid=local_grid, fs=fs,
+                       axis_to_mesh_axis=axis_to_mesh_axis, bc=bc, fv=fv)
 
     # partner (other_component) arrays ride along as extra operands
     partners = [None if oc is None else next(iter(oc.values())) for oc in ocs]
@@ -394,7 +397,8 @@ def sharded_apply_as_grid_ufunc(
         for a, arr, b, pa in zip(args, arg_arrays, arg_blocks, partners):
             partner = None if pa is None else (pa, next(partner_blocks))
             vector_axis = next(iter(a)) if isinstance(a, dict) else None
-            padded.append(padded_blocks(arr, b, vector_axis, partner))
+            padded.append(_pad_blocks(arr, b, bw, vector_axis=vector_axis, partner=partner,
+                                      **pad_context))
         outs = [np.empty(mesh.devices.shape, dtype=object) for _ in out_dims]
         for c in coords(mesh):
             handed = iter([p[c] for p in padded])
