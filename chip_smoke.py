@@ -3,7 +3,7 @@
 
 Builds the eight hand-written CUDA kernels from ``xgcm_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the shapes of the main
-paths, and drives seven paths at the width of LLC4320 (4320 x 4320 columns a
+paths, and drives eight paths at the width of LLC4320 (4320 x 4320 columns a
 face, 50 levels, float32):
 
 * the C-grid analysis step (``xgcm_tpu_torch.entry.step``, kernels A and C)
@@ -45,7 +45,18 @@ face, 50 levels, float32):
   (tracer gradients, vorticity, divergence through ``diff_2d_vector``, the
   2-D vector interpolation) with the 13 faces over four shards (16
   with the dummy faces, kernel E a block an op), and a vector diff and a
-  Y cumsum on a face x rows mesh of 2 x 2.
+  Y cumsum on a face x rows mesh of 2 x 2;
+* the multi-process runtime at one face: two processes on the card
+  (``init_distributed(backend="gloo")``, CUDA blocks staged through host
+  memory; and one process a card over NCCL where there are two cards), each
+  holding its blocks of meshes the two share (``make_multihost_mesh``): the
+  ring route, the cumsum, the derivative, the batch route (kernel A once a
+  process), the diagnostics, the per-shard linear transform (kernel C once a
+  block) and the face analysis as eight ops (kernel E once a block an op) and
+  as one apply_many, each process holding its blocks against the
+  single-device result it computes, with phase 11's budgets of collectives,
+  the bytes that crossed between the processes, each process's peak memory,
+  and the wall time between barriers beside phase 11's one-process time.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; the script checks that every kernel of the path launched and that
@@ -63,7 +74,8 @@ a column's cells (``CONSERVATIVE_CASES``, infinite bounds among them), and
 H against V single calls of G bit for bit.
 
     python3 chip_smoke.py [--seed N]
-    python3 chip_smoke.py --sharded-phase     # phase 11 alone
+    python3 chip_smoke.py --sharded-phase       # phase 11 alone
+    python3 chip_smoke.py --multiprocess-phase  # phase 12 alone
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 describing the kernels, then ``{"ok": true, "device": {...}}`` as the last
@@ -81,6 +93,7 @@ import importlib.util
 import io
 import itertools
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -2247,15 +2260,16 @@ def phase_devices(dev, n):
 
 
 def same_by_block(label, got, want, rtol=None):
-    """Each block of a sharded result against the matching slice of the
-    single-device result: on its mesh coordinate's device, the same dims,
+    """Each block of a sharded result that this process holds against the
+    matching slice of the single-device result: on its mesh coordinate's
+    device, the same dims,
     NaN and infinities in the same places, and equal values (``rtol``:
     within it)."""
     st = got.data
     if got.dims != want.dims or tuple(st.shape) != tuple(want.shape):
         raise AssertionError(f"{label}: {got.dims} {tuple(st.shape)}, single-device "
                              f"{want.dims} {tuple(want.shape)}")
-    for c in np.ndindex(st.blocks.shape):
+    for c in st.mesh.local_coords:
         b = st.blocks[c]
         if b.device != st.mesh.devices[c]:
             raise AssertionError(f"{label}: block {c} on {b.device}, its mesh coordinate on "
@@ -2784,6 +2798,403 @@ def sharded_phase_main(seed) -> int:
     return 0
 
 
+# ---- phase 12: the multi-process runtime ------------------------------------------
+MP_PROCESSES = 2  # processes of the multi-process phase
+MP_TIMEOUT_S = 480  # the two processes of one layout, from start to exit
+MP_COLLECTIVE_TIMEOUT_S = 300  # gloo's and NCCL's: a collective with no match fails
+
+
+def run_multiprocess_phase(seed, shape=None):
+    """Phase 12: two processes on ``cuda:0`` over gloo, CUDA blocks staged
+    through host memory; then, where there are two cards, one process a
+    card over NCCL.  Each layout's two processes are children of this one,
+    which waits for both, kills both when either fails or the pair runs
+    past MP_TIMEOUT_S, and fails then.  ``shape`` (nz, ny, nx) cuts the
+    phase's sizes."""
+    layouts = ["gloo"]
+    if torch.cuda.device_count() >= MP_PROCESSES:
+        layouts.append("nccl")
+    else:
+        log(f"phase 12: the NCCL layout (one process a card) needs {MP_PROCESSES} cards; this "
+            f"machine has {torch.cuda.device_count()}, so it runs the gloo layout only (not a "
+            "failure)")
+    for backend in layouts:
+        run_multiprocess_pair(seed, backend, shape)
+
+
+def run_multiprocess_pair(seed, backend, shape=None):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, str(pathlib.Path(__file__).resolve()), "--multiprocess-child",
+               "--backend", backend, "--init", f"file://{d}/init", "--seed", str(seed)]
+        if shape is not None:
+            cmd += ["--shape", ",".join(str(n) for n in shape)]
+        sys.stdout.flush()
+        procs = []
+        for rank in range(MP_PROCESSES):
+            env = dict(os.environ, LOCAL_RANK=str(rank))
+            procs.append(subprocess.Popen(cmd + ["--rank", str(rank)], env=env))
+        deadline = time.monotonic() + MP_TIMEOUT_S
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() for p in procs) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            late = [p for p in procs if p.poll() is None]
+            for p in late:
+                p.kill()
+            for p in procs:
+                p.wait()
+        codes = [p.returncode for p in procs]
+        if late or any(codes):
+            raise AssertionError(f"phase 12 ({backend}) failed: exit codes {codes}"
+                                 + (f", {len(late)} process(es) killed" if late else ""))
+
+
+def multiprocess_child_main(seed, rank, init, backend, shape) -> int:
+    """The entry of each process run_multiprocess_pair starts."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: torch.cuda.is_available() is false")
+    xtt = import_port()
+    from xgcm_tpu_torch import parallel as par
+    from xgcm_tpu_torch.ops.kernels import build
+
+    build.load_library()  # built by the parent process
+    if not par.init_distributed(init, MP_PROCESSES, rank, backend=backend,
+                                timeout=MP_COLLECTIVE_TIMEOUT_S):
+        raise RuntimeError("init_distributed did not start the runtime")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    nz, ny, nx = shape or (NZ, NY, NX)
+    try:
+        multiprocess_phase(xtt, build, gen, dev, card_line(), backend, nz=nz, ny=ny, nx=nx,
+                           timing=shape is None)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+# the bytes a process sent in phase 12's ring diff X periodic, in its ring
+# diff X extend, and in one face-analysis result's assembly (8 faces)
+PROBE_BYTES = (NZ * NY * 4, 9 * NZ * NY * 4, 8 * NY * NX * 4)
+
+
+def transport_probe(dev, backend, card, reps=3):
+    """The parts of the transport, timed alone for PROBE_BYTES each way
+    between the two processes: under gloo the staging copy to host memory
+    (``.cpu()``), the exchange of host buffers (one ``batch_isend_irecv``)
+    and the copy back (``.to(dev)``); under NCCL the exchange of device
+    buffers.  Host clock, mean of ``reps``, logged by rank 0."""
+    dist = torch.distributed
+    peer = 1 - dist.get_rank()
+    parts = []
+    for n in PROBE_BYTES:
+        src = torch.full((n,), 7, dtype=torch.uint8, device=dev)
+        ms = {}
+
+        def clock(name, fn):
+            fn()
+            ms[name] = 0.0
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms[name] += (time.perf_counter() - t0) * 1e3 / reps
+
+        if backend == "gloo":
+            host, buf = src.cpu(), torch.empty(n, dtype=torch.uint8)
+            clock("to host", lambda: src.cpu())
+            clock("gloo exchange", lambda: [w.wait() for w in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, host, peer), dist.P2POp(dist.irecv, buf, peer)])])
+            clock("to the card", lambda: buf.to(dev))
+        else:
+            buf = torch.empty_like(src)
+            clock("NCCL exchange", lambda: [w.wait() for w in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, src, peer), dist.P2POp(dist.irecv, buf, peer)])])
+        if not torch.equal(buf.to(dev), src):
+            raise AssertionError(f"transport probe: {n} bytes arrived changed")
+        parts.append(f"{n} B: " + ", ".join(
+            f"{k} {v:.4f} ms ({n / v / 1e6:.3f} GB/s)" for k, v in ms.items()))
+        del src, buf
+    if dist.get_rank() == 0:
+        log(f"time phase 12 transport ({backend}, host clock, mean of {reps}, each way at once): "
+            + "; ".join(parts) + f" [{card}]")
+
+
+def multiprocess_phase(xtt, build, gen, dev, card, backend, nz=NZ, ny=NY, nx=NX, timing=True):
+    """Phase 12, in one of two processes: the routes of phase 11 on meshes
+    whose coordinates the two processes share (two blocks each on
+    ``{"x": 4}`` and ``{"f": 4}``, one on ``{"z": 2}``, a row of
+    ``{"y": 2, "x": 2}``), each process holding its blocks against the
+    single-device result it computes on its card, with its launches (its
+    own blocks'), its collectives (phase 11's budgets), the bytes that
+    crossed to the other process, its peak memory, and the wall time
+    between barriers beside the one-process time on four logical
+    shards."""
+    from xgcm_tpu_torch import parallel as par
+    from xgcm_tpu_torch.parallel import collectives
+    from xgcm_tpu_torch.parallel.diagnostics import sharded_cgrid_diagnostics
+
+    dist = torch.distributed
+    rank = dist.get_rank()
+    per = N_SHARDS // MP_PROCESSES  # blocks a process holds on a 4-shard mesh
+    tag = f"phase 12 [{backend}, rank {rank} on {dev}]"
+    t_phase = time.perf_counter()
+    times, moved = [], {}
+
+    def meshes(axes):
+        """(the mesh over both processes, the one-process mesh of logical
+        shards of this card)."""
+        n = int(np.prod(list(axes.values())))
+        return (par.make_multihost_mesh(axes, devices=[dev] * (n // MP_PROCESSES)),
+                par.make_mesh(axes, devices=[dev] * n))
+
+    def call(label, fn):
+        """``fn()`` with the launches, collectives and bytes counted."""
+        collectives.TRANSPORT.clear()
+        out, launches, cc = counted_call(build, fn)
+        moved[label] = dict(collectives.TRANSPORT)
+        return out, launches, cc
+
+    def wall_ms(fn, reps=3):
+        """(mean, min) ms of ``fn`` between barriers of both processes."""
+        fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(reps):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return sum(ms) / reps, min(ms)
+
+    def timed(name, two, one, single):
+        """The two-process wall time of ``two``; on rank 0, while rank 1
+        waits, phase 11's CUDA-event times of ``one`` (four logical shards
+        in one process) and ``single``."""
+        if not timing:
+            return
+        mean, least = wall_ms(two)
+        one_ms = single_ms = None
+        if rank == 0:
+            one_ms, single_ms = time_pair(one, single, reps=3)
+        dist.barrier()
+        times.append((name, mean, least, one_ms, single_ms))
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated(dev) / 1e9
+
+    def fresh():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # (1) the ring route, the cumsum and the metric route on {"x": 4}
+    fresh()
+    grid = budget_grid(xtt, nx, ny, nz)
+    theta = sharded_inputs(gen, dev, nz, ny, nx)
+    # NaN and -inf either side of the process boundary too
+    theta[4, 1, nx // 2 - 1] = float("nan")
+    theta[0, 3, nx // 2] = -float("inf")
+    th = xtt.GriddedArray(theta, ("zc", "yc", "xc"), name="theta")
+    del theta
+    mesh, mesh1 = meshes({"x": N_SHARDS})
+    log(f"{tag}: mesh {mesh}, this process holds {mesh.local_coords}; theta ({nz}, {ny}, {nx}) "
+        f"f32, {nx // N_SHARDS} columns a block")
+    sg, sg1 = par.ShardedGrid(grid, mesh, {"X": "x"}), par.ShardedGrid(grid, mesh1, {"X": "x"})
+    th_sh = sg.shard(th)
+    for bc in ("periodic", "fill", "extend"):
+        for op in SHIFT_OPS:
+            label = f"ring {op} X {bc}"
+            out, launches, cc = call(label, lambda: getattr(sg, op)(th_sh, "X", boundary=bc,
+                                                                   fill_value=1.5))
+            expect_counts(f"{tag} {label}", launches, cc, {"face_shift": per, "shift": 0},
+                          RING_BUDGET[bc])
+            same_by_block(f"{tag} {label}", out, getattr(grid, op)(th, "X", boundary=bc,
+                                                                    fill_value=1.5))
+            del out
+    log(f"{tag}: ring route: diff, interp, min, max along X under periodic, fill and extend == "
+        f"the single-device op bit for bit on this process's blocks, kernel E {per} launches "
+        f"(its blocks) and A none per op, collectives {RING_BUDGET} (phase 11's, the JAX "
+        f"budget); bytes to/from the other process: "
+        + "; ".join(f"{bc} {moved[f'ring diff X {bc}']}" for bc in ("periodic", "fill", "extend"))
+        + f"; peak device memory {peak_gb():.2f} GB [{card}]")
+    for bc in ("fill", "periodic"):
+        label = f"cumsum X to=left {bc}"
+        out, launches, cc = call(label, lambda: sg.cumsum(th_sh, "X", to="left", boundary=bc))
+        expect_counts(f"{tag} {label}", launches, cc, {"face_shift": 0, "shift": 0},
+                      CUMSUM_BUDGET[bc])
+        same_by_block(f"{tag} {label}", out, grid.cumsum(th, "X", to="left", boundary=bc),
+                      rtol=CUMSUM_RTOL)
+        del out
+    out, launches, cc = call("derivative X", lambda: sg.derivative(th_sh, "X"))
+    expect_counts(f"{tag} derivative X", launches, cc, {"face_shift": per, "shift": 0},
+                  RING_BUDGET["periodic"])
+    same_by_block(f"{tag} derivative X", out, grid.derivative(th, "X"), rtol=METRIC_RTOL)
+    del out
+    log(f"{tag}: cumsum X to=left (fill, periodic) within rtol {CUMSUM_RTOL:.2e} and derivative "
+        f"X within {METRIC_RTOL} of the single-device calls, collectives {CUMSUM_BUDGET} and "
+        f"{RING_BUDGET['periodic']}; bytes: cumsum fill {moved['cumsum X to=left fill']}, "
+        f"derivative {moved['derivative X']}; peak device memory {peak_gb():.2f} GB [{card}]")
+    if timing:
+        th_1 = sg1.shard(th) if rank == 0 else None
+        for bc in ("periodic", "extend"):
+            timed(f"ring diff X {bc}", lambda: sg.diff(th_sh, "X", boundary=bc),
+                  lambda: sg1.diff(th_1, "X", boundary=bc), lambda: grid.diff(th, "X", boundary=bc))
+        timed("cumsum X to=left fill", lambda: sg.cumsum(th_sh, "X", to="left", boundary="fill"),
+              lambda: sg1.cumsum(th_1, "X", to="left", boundary="fill"),
+              lambda: grid.cumsum(th, "X", to="left", boundary="fill"))
+        timed("derivative X", lambda: sg.derivative(th_sh, "X"),
+              lambda: sg1.derivative(th_1, "X"), lambda: grid.derivative(th, "X"))
+        del th_1
+    del th_sh
+    peaks = {"ring, cumsum, derivative": peak_gb()}
+
+    # (2) the batch route: Z over {"z": 2}, one block and one launch of A a process
+    fresh()
+    mesh_z, mesh_z1 = meshes({"z": 2})
+    sgz, sgz1 = par.ShardedGrid(grid, mesh_z, {"zc": "z"}), par.ShardedGrid(grid, mesh_z1,
+                                                                            {"zc": "z"})
+    th_z = sgz.shard(th)
+    out, launches, cc = call("batch diff X", lambda: sgz.diff(th_z, "X"))
+    expect_counts(f"{tag} batch diff X", launches, cc, {"shift": 1, "face_shift": 0}, {})
+    same_by_block(f"{tag} batch diff X", out, grid.diff(th, "X"))
+    del out
+    log(f"{tag}: batch route: diff X with Z over 2 processes == the single-device diff bit for "
+        f"bit, kernel A 1 launch, no collective, bytes {moved['batch diff X']}; peak device "
+        f"memory {peak_gb():.2f} GB [{card}]")
+    if timing:
+        th_z1 = sgz1.shard(th) if rank == 0 else None
+        timed("batch diff X (Z over 2)", lambda: sgz.diff(th_z, "X"),
+              lambda: sgz1.diff(th_z1, "X"), lambda: grid.diff(th, "X"))
+        del th_z1
+    del th_z, th
+    peaks["batch"] = peak_gb()
+
+    # (3) the sharded C-grid diagnostics on {"y": 2, "x": 2}: a row each
+    fresh()
+    u = xtt.GriddedArray(torch.randn((ny, nx), generator=gen, device=dev), ("yc", "xg"), name="u")
+    v = xtt.GriddedArray(torch.randn((ny, nx), generator=gen, device=dev), ("yg", "xc"), name="v")
+    mesh2, mesh21 = meshes({"y": 2, "x": 2})
+    m2 = {"xc": "x", "xg": "x", "yc": "y", "yg": "y"}
+
+    def chain(g):
+        zeta = g.diff(v, "X") - g.diff(u, "Y")
+        div = g.diff(u, "X", to="center") + g.diff(v, "Y", to="center")
+        u_c, v_c = g.interp(u, "X", to="center"), g.interp(v, "Y", to="center")
+        return zeta, div, 0.5 * (u_c * u_c + v_c * v_c)
+
+    fused, launches, cc = call("diagnostics",
+                               lambda: sharded_cgrid_diagnostics(grid, u, v, mesh2, m2))
+    expect_counts(f"{tag} sharded diagnostics", launches, cc,
+                  {"shift": 0, "face_shift": 0, "cgrid_diagnostics": 0}, {"ppermute": 4})
+    for name, f, one in zip(("zeta", "div", "ke"), fused, chain(grid)):
+        same_by_block(f"{tag} diagnostics {name}", f, one)
+    del fused
+    log(f"{tag}: sharded diagnostics {ny}x{nx} f32: zeta, div, ke == the single-device Grid ops "
+        f"bit for bit; 4 ppermutes, no kernel; bytes {moved['diagnostics']} [{card}]")
+    timed("sharded diagnostics (2 x 2)", lambda: sharded_cgrid_diagnostics(grid, u, v, mesh2, m2),
+          lambda: sharded_cgrid_diagnostics(grid, u, v, mesh21, m2), lambda: chain(grid))
+    del u, v
+    peaks["diagnostics"] = peak_gb()
+
+    # (4) the per-shard linear transform: the density columns of the face,
+    # X over {"x": 4}, kernel C once per block
+    fresh()
+    sig_b, sig_c, (field,) = density_columns(gen, dev, ny * nx, n=nz, nv=1)
+    del sig_b
+    _, levels = density_targets(dev)
+    dgrid = density_grid(xtt, nz=nz)
+    T = xtt.GriddedArray(field.view(ny, nx, nz), ("y", "x", "zc"), name="T")
+    sc = xtt.GriddedArray(sig_c.view(ny, nx, nz), ("y", "x", "zc"), name="sigma")
+    del field, sig_c
+    single = dgrid.transform(T, "Z", levels, target_data=sc)
+    sgd, sgd1 = (par.ShardedGrid(dgrid, m, {"x": "x"}) for m in (mesh, mesh1))
+    T_sh, sc_sh = sgd.shard(T), sgd.shard(sc)
+    out, launches, cc = call("transform linear",
+                             lambda: sgd.transform(T_sh, "Z", levels, target_data=sc_sh))
+    expect_counts(f"{tag} per-shard interp_linear", launches, cc, {"interp_linear": per}, {})
+    same_by_block(f"{tag} per-shard interp_linear", out, single)
+    del out, single
+    log(f"{tag}: per-shard linear transform ({per} of {N_SHARDS} x {nx // N_SHARDS} x {ny} "
+        f"columns of {nz} levels) == the single-device call bit for bit, kernel C {per} "
+        f"launches, no collective, bytes {moved['transform linear']}; peak device memory "
+        f"{peak_gb():.2f} GB [{card}]")
+    if timing:
+        T_1, sc_1 = (sgd1.shard(T), sgd1.shard(sc)) if rank == 0 else (None, None)
+        timed("per-shard interp_linear",
+              lambda: sgd.transform(T_sh, "Z", levels, target_data=sc_sh),
+              lambda: sgd1.transform(T_1, "Z", levels, target_data=sc_1),
+              lambda: dgrid.transform(T, "Z", levels, target_data=sc))
+        del T_1, sc_1
+    del T, sc, T_sh, sc_sh
+    peaks["transform"] = peak_gb()
+
+    # (5) phase 8's face analysis with the faces over {"f": 4}: two face
+    # blocks a process, 16 faces with the three dummy ones
+    fresh()
+    _, lgrid = xtt.grids.llc_grid(n=nx)
+    fth, lu, lv = (edge_nonfinite(torch.randn((N_FACES, nx, nx), generator=gen, device=dev))
+                   for _ in range(3))
+    single = face_analysis(lgrid, xtt, fth, lu, lv)
+    meshf, meshf1 = meshes({"f": N_SHARDS})
+    sgf, sgf1 = (par.ShardedGrid(lgrid, m, {"face": "f"}) for m in (meshf, meshf1))
+    out, launches, cc = call("face analysis", lambda: face_analysis_2d(sgf, xtt, fth, lu, lv))
+    want_cc = {"all_gather": 2 * FACE_BUDGET["scalar"]["all_gather"]
+               + 6 * FACE_BUDGET["vector"]["all_gather"]}
+    expect_counts(f"{tag} face analysis", launches, cc, {"face_shift": 8 * per, "shift": 0},
+                  want_cc)
+    for name, got in out.items():
+        same_faces(f"{tag} face analysis {name}", got, single[name])
+    del out
+    out, launches, cc = call("face analysis batch",
+                             lambda: face_analysis_batch(sgf, xtt, fth, lu, lv))
+    expect_counts(f"{tag} face analysis batch", launches, cc, no_kernel(build), FACE_BATCH_BUDGET)
+    for name, got in out.items():
+        same_faces(f"{tag} face analysis batch {name}", got, single[name])
+    del out
+    log(f"{tag}: face analysis ({N_FACES} x {nx} x {nx} f32, faces over 4 shards of 2 "
+        f"processes) as eight ops == phase 8's single-device analysis value for value, kernel E "
+        f"{8 * per} launches (8 ops x {per} blocks), collectives {want_cc}, bytes "
+        f"{moved['face analysis']}; as one apply_many the same, no kernel, collectives "
+        f"{FACE_BATCH_BUDGET}, bytes {moved['face analysis batch']}; peak device memory "
+        f"{peak_gb():.2f} GB [{card}]")
+    del single
+    timed("face analysis (faces over 4)", lambda: face_analysis_2d(sgf, xtt, fth, lu, lv),
+          lambda: face_analysis_2d(sgf1, xtt, fth, lu, lv),
+          lambda: face_analysis(lgrid, xtt, fth, lu, lv))
+    timed("face analysis batch (apply_many, faces over 4)",
+          lambda: face_analysis_batch(sgf, xtt, fth, lu, lv),
+          lambda: face_analysis_batch(sgf1, xtt, fth, lu, lv),
+          lambda: face_analysis(lgrid, xtt, fth, lu, lv))
+    del fth, lu, lv
+    peaks["face analysis"] = peak_gb()
+    fresh()
+
+    if timing:
+        transport_probe(dev, backend, card)
+
+    both = [None] * MP_PROCESSES
+    dist.all_gather_object(both, peaks)
+    if rank == 0:
+        log(f"phase 12 [{backend}]: peak device memory per process (GB, rank 0 / rank 1): "
+            + "; ".join(f"{k} {both[0][k]:.2f} / {both[1][k]:.2f}" for k in peaks)
+            + f"; at most {max(sum(b[k] for b in both) for k in peaks):.2f} GB on the card(s) "
+            f"together [{card}]")
+        for name, mean, least, one_ms, single_ms in times:
+            log(f"time phase 12 {name} ({backend}, {MP_PROCESSES} processes): {mean:.4f} ms "
+                f"(wall between barriers, mean of 3; least {least:.4f}), one process of four "
+                f"logical shards {one_ms:.4f} ms, single-device {single_ms:.4f} ms (CUDA "
+                f"events) [{card}]")
+    log(f"{tag}: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2793,11 +3204,32 @@ def main(argv=None) -> int:
     # phase 11 alone, as the process run_sharded_phase starts
     parser.add_argument("--sharded-phase", action="store_true",
                         help="run phase 11, the sharded layer, alone")
+    parser.add_argument("--multiprocess-phase", action="store_true",
+                        help="run phase 12, the multi-process runtime, alone")
+    # one process of phase 12, as run_multiprocess_pair starts it
+    parser.add_argument("--multiprocess-child", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--backend", default="gloo", help=argparse.SUPPRESS)
+    parser.add_argument("--init", help=argparse.SUPPRESS)
+    parser.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--shape", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.xarray_phase:
         return xarray_phase_main(args.seed, args.shift_ms)
     if args.sharded_phase:
         return sharded_phase_main(args.seed)
+    if args.multiprocess_child:
+        shape = tuple(int(n) for n in args.shape.split(",")) if args.shape else None
+        return multiprocess_child_main(args.seed, args.rank, args.init, args.backend, shape)
+    if args.multiprocess_phase:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA card: torch.cuda.is_available() is false")
+        import_port()
+        from xgcm_tpu_torch.ops.kernels import build
+
+        build.build_library()
+        log(f"card: {card_line()}")
+        run_multiprocess_phase(args.seed)
+        return 0
 
     # ---- phase 1: device ------------------------------------------------
     t_start = time.perf_counter()
@@ -3130,6 +3562,9 @@ def main(argv=None) -> int:
 
     # ---- phase 11: the sharded layer at one LLC4320 face -----------------
     run_sharded_phase(args.seed)
+
+    # ---- phase 12: the multi-process runtime at one LLC4320 face ----------
+    run_multiprocess_phase(args.seed)
 
     report = {"kernels": [
         {

@@ -692,6 +692,19 @@ def test_sharded_layer_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_multiprocess_ring_on_card(cuda):
+    """chip_smoke's phase 12 at 6 x 16 x 24 in two gloo processes on
+    ``cuda:0`` (CUDA blocks staged through host memory): each process
+    holds two of the four blocks of ``{"x": 4}``, and its ring diff (and
+    every other op of the phase) launches kernel E once per block it holds
+    and equals the single-device op on the card bit for bit, with the JAX
+    budget of collectives in each process; the phase's child processes
+    are joined with a timeout and killed on it."""
+    build.build_library()
+    chip_smoke.run_multiprocess_pair(35, "gloo", shape=chip_smoke.SHARDED_SMALL)
+
+
+@pytest.mark.cuda
 def test_apply_many_on_card(cuda):
     """chip_smoke's apply_many checks at a small size on four logical shards
     of the card: the face analysis's eight ops in one batch on a 13-face

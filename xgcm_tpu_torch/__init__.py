@@ -12,9 +12,11 @@ and give ``xr.DataArray`` (:mod:`.adapters.xarray_adapter`).  On a CUDA tensor t
 hand-written CUDA kernels (``csrc/``); on a CPU tensor they run the kernels'
 plain PyTorch versions.  Host data that enters the package goes to the CUDA
 card unless the caller asks for the CPU (:func:`set_default_device`).
-:mod:`.parallel` shards arrays over a mesh of devices single-controller, as
-JAX does: one process holds every block, a device may repeat (logical
-shards), and a collective is a copy between blocks.
+:mod:`.parallel` shards arrays over a mesh of devices as JAX does: in one
+process that process holds every block, a device may repeat (logical
+shards), and a collective is a copy between blocks; across processes
+(``init_distributed``, ``make_multihost_mesh``) each holds its own blocks
+and the rest move through ``torch.distributed``.
 The JAX package ``xgcm_tpu`` is the reference this package is tested
 against; this package imports neither it nor JAX.
 """

@@ -21,8 +21,8 @@ third: the face x y x x decomposition.  Each op step:
    compiled plan (:func:`compile_face_plan`): source face and side,
    tangential flip, and the sign rules of a vector component.
 
-One process holds every block, so the plan stays on the host and each
-edge is a plain slice chosen in Python; a block's edge columns are plain
+Every process reads the plan on the host, and each edge of the blocks it
+holds is a plain slice chosen in Python; a block's edge columns are plain
 strided slices (no lane window, which was a TPU layout workaround).
 
 The built-in ops (diff/interp/min/max) read a halo one wide on one side.
@@ -61,7 +61,7 @@ from ..core.padding import BOUNDARY_TO_PAD_MODE, _pad_axis
 from ..core.topology import FaceHaloPlan, compile_face_plan
 from ..ops.kernels.face_shift import face_shift
 from ..ops.stencils import cumsum, wrapping
-from .collectives import all_gather, coords, map_blocks, psum
+from .collectives import all_gather, coords, first_local, map_blocks, psum
 from .halo import _SHARDABLE_WIDTHS, ring_halos, ring_kernel_ok
 from .mesh import Mesh, partition_spec, to_sharded
 from .sharded_tensor import ShardedTensor, _block_index
@@ -197,7 +197,7 @@ class FaceSetup:
             return to_sharded(da.data, self.mesh, spec).blocks
         data = da.data
         full = (data.full_tensor() if isinstance(data, ShardedTensor)
-                else as_tensor(data, self.mesh.devices.flat[0]))
+                else as_tensor(data, self.mesh.local_device))
         i = da.get_axis_num(self.facedim)
         shape = list(full.shape)
         shape[i] = self.n_padded
@@ -269,7 +269,7 @@ class _Layout(NamedTuple):
 
 
 def _layout(blocks, mesh, face_mesh_axis, interior_mesh_axis, interior_mesh_axis_x) -> _Layout:
-    fpd, ny_loc, nx_loc = blocks.flat[0].shape[-3:]
+    fpd, ny_loc, nx_loc = first_local(blocks).shape[-3:]
     return _Layout(mesh, face_mesh_axis, interior_mesh_axis, interior_mesh_axis_x,
                    fpd, ny_loc, nx_loc)
 
@@ -385,7 +385,7 @@ def _prepad(blocks: np.ndarray, w: int, mesh: Mesh, steps) -> np.ndarray:
     one its boundary condition.  The values equal two successive
     :func:`~.halo.pad_axis_local_or_ring` calls; the block is copied once
     where those concatenate twice."""
-    ny, nx = blocks.flat[0].shape[-2:]
+    ny, nx = first_local(blocks).shape[-2:]
     out = np.empty(blocks.shape, dtype=object)
     for c in coords(mesh):
         b = blocks[c]
@@ -765,7 +765,7 @@ def sharded_face_cumsum(
     axis_is_x = axis_name == x_axis
     opax = -1 if axis_is_x else -2
     op_mesh_axis = interior_mesh_axis_x if axis_is_x else interior_mesh_axis
-    n_loc = blocks.flat[0].shape[opax]
+    n_loc = first_local(blocks).shape[opax]
 
     cs = map_blocks(lambda b: cumsum(b, opax), blocks, mesh=mesh)
     if op_mesh_axis is not None:

@@ -32,7 +32,7 @@ from ..core.grid import Grid
 from ..ops.kernels.face_shift import face_shift
 from ..ops.kernels.shift import SHIFT_DTYPES
 from ..ops.stencils import _UNSIGNED_WIDE, apply_pair, cumsum, wrapping
-from .collectives import all_gather, coords, map_blocks, ppermute, shard_map
+from .collectives import all_gather, coords, first_local, map_blocks, ppermute, shard_map
 from .mesh import Mesh, partition_spec
 
 __all__ = ["ring_halo_pad", "ring_shift", "sharded_op", "sharded_cumsum"]
@@ -63,7 +63,7 @@ def ring_halos(blocks: np.ndarray, axis: int, widths: Tuple[int, int], mesh: Mes
     ppermute, so the traffic is exactly the halo.  Halo elements outside
     the global domain take the boundary condition."""
     lw, rw = widths
-    first = blocks.flat[0]
+    first = first_local(blocks)
     axis = axis % first.ndim
     n_local = first.shape[axis]
     n = mesh.shape[mesh_axis]
@@ -169,7 +169,7 @@ def ring_halo_pad(blocks: np.ndarray, axis: int, widths: Tuple[int, int], mesh: 
     lw, rw = widths
     if lw == 0 and rw == 0:
         return blocks
-    axis = axis % blocks.flat[0].ndim
+    axis = axis % first_local(blocks).ndim
     left, right = ring_halos(blocks, axis, widths, mesh, mesh_axis, boundary, fill_value)
     out = np.empty(blocks.shape, dtype=object)
     for c in coords(mesh):
@@ -199,7 +199,7 @@ def ring_shift(blocks: np.ndarray, axis: int, op: str, direction: str, mesh: Mes
     neighbour shard's edge line as the one-wide halo: kernel E per block
     on the card, its plain version on the CPU.  ``direction`` "left" pairs
     each element with the one before it, "right" with the one after."""
-    axis = axis % blocks.flat[0].ndim
+    axis = axis % first_local(blocks).ndim
     widths = (1, 0) if direction == "left" else (0, 1)
     left, right = ring_halos(blocks, axis, widths, mesh, mesh_axis, boundary, fill_value)
     lines = left if direction == "left" else right
@@ -311,7 +311,7 @@ def sharded_op(
     direction = "left" if widths == (1, 0) else "right"
 
     def local(blocks):
-        if ring_kernel_ok(funcname, blocks.flat[0].dtype, bc):
+        if ring_kernel_ok(funcname, first_local(blocks).dtype, bc):
             return ring_shift(blocks, axis_num, funcname, direction, mesh, mesh_axis, bc,
                               float(fv))
         padded = ring_halo_pad(blocks, axis_num, widths, mesh, mesh_axis, bc, float(fv))
@@ -383,7 +383,7 @@ def sharded_cumsum(
 
     def local(blocks):
         local_cs = map_blocks(lambda b: cumsum(b, axis_num), blocks, mesh=mesh)
-        n_local = blocks.flat[0].shape[axis_num]
+        n_local = first_local(blocks).shape[axis_num]
         totals = all_gather(
             map_blocks(lambda s: s.narrow(axis_num, n_local - 1, 1), local_cs, mesh=mesh),
             mesh, mesh_axis)  # (n, ..., 1, ...) on every shard

@@ -35,7 +35,7 @@ from ..core.dataarray import GriddedArray
 from ..core.grid import Grid, _select_grid_ufunc
 from ..core.signature import GridUFuncSignature
 from .apply_many import sharded_apply_many
-from .collectives import coords, map_blocks
+from .collectives import coords, first_local, map_blocks
 from .halo import _SHARDABLE_WIDTHS, ring_kernel_ok, sharded_cumsum, sharded_op
 from .mesh import Mesh, partition_spec, shard_gridded, to_sharded
 from .sharded_tensor import ShardedTensor
@@ -268,7 +268,7 @@ class ShardedGrid:
         spec = partition_spec(da.dims, self.dim_to_mesh_axis)
         results = map_blocks(local_ga_fn, to_sharded(da.data, self.mesh, spec).blocks,
                              mesh=self.mesh)
-        ga = results.flat[0]
+        ga = first_local(results)
         data = map_blocks(lambda r: r.data, results, mesh=self.mesh)
         out_spec = partition_spec(ga.dims, self.dim_to_mesh_axis)
         return GriddedArray(ShardedTensor(data, self.mesh, out_spec), ga.dims, name=ga.name)
@@ -496,7 +496,7 @@ class ShardedGrid:
             else:
                 results[c] = [grid.transform(arrs[0], axis, tgt, target_data=td, **kwargs)]
         outs = []
-        for i, ga in enumerate(results.flat[0]):
+        for i, ga in enumerate(first_local(results)):
             part = np.empty(results.shape, dtype=object)
             for c in coords(self.mesh):
                 part[c] = results[c][i].data

@@ -9,6 +9,8 @@ holds no storage of its own.  It keeps
 * one block per mesh coordinate, on that coordinate's device: a dim mapped
   to a mesh axis is split evenly along it, and a mesh axis that maps no dim
   holds copies.  Blocks are distinct tensors, never views of one another.
+  On a mesh over several processes a process holds the blocks of its own
+  coordinates and ``None`` at the others'.
 
 It is a tensor so that a :class:`~xgcm_tpu_torch.GriddedArray` keeps it as
 its data: ``as_tensor`` leaves a tensor as it is, where anything else would
@@ -20,10 +22,11 @@ go through ``np.asarray`` to the host.  Aten ops on it run as follows:
   flips, detach, clone, dtype casts) run block by block; a plain operand is
   sliced to each block along the sharded dims, a sharded one replicated
   along a dim is sliced likewise;
-* any other op assembles the global tensor on the mesh's first device,
-  runs there, and gives back a result sharded by its input's spec where its
-  dims allow (else a plain tensor on that device): the gather a GSPMD
-  partitioner makes around an op it cannot split.  An in-place op writes
+* any other op assembles the global tensor on the process's first device
+  (the blocks of other processes come through the transport of
+  :mod:`.collectives`), runs there, and gives back a result sharded by its
+  input's spec where its dims allow (else a plain tensor on that device):
+  the gather a GSPMD partitioner makes around an op it cannot split.  An in-place op writes
   its result back into the blocks.
 
 Every assembly adds one to :data:`ASSEMBLIES`, never a copy to the host by
@@ -46,6 +49,7 @@ __all__ = [
     "ShardedTensor",
     "assembly_count",
     "distribute",
+    "first_local",
     "reset_assembly_count",
 ]
 
@@ -61,6 +65,12 @@ def assembly_count() -> int:
 
 def reset_assembly_count() -> None:
     ASSEMBLIES["count"] = 0
+
+
+def first_local(blocks: np.ndarray):
+    """The first block this process holds (row-major): the one that
+    stands for every block's shape and dtype."""
+    return next(b for b in blocks.flat if b is not None)
 
 
 def _block_index(spec, mesh, shape, coord) -> Tuple[slice, ...]:
@@ -84,14 +94,16 @@ def _copy_to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def distribute(tensor: torch.Tensor, mesh, spec: Sequence[Optional[str]]) -> "ShardedTensor":
     """Split a plain tensor into a :class:`ShardedTensor` of ``spec`` on
-    ``mesh``: each block a new tensor on its coordinate's device (a copy,
-    even where the device is the tensor's own)."""
+    ``mesh``: each block this process holds a new tensor on its
+    coordinate's device (a copy, even where the device is the tensor's
+    own).  In a multi-process job every process passes the same global
+    tensor and cuts its own blocks."""
     spec = tuple(spec)
     if len(spec) != tensor.ndim:
         raise ValueError(f"spec {spec} does not match a {tensor.ndim}-d tensor")
     _check_spec(spec, mesh, tuple(tensor.shape))
     blocks = np.empty(mesh.devices.shape, dtype=object)
-    for c in np.ndindex(mesh.devices.shape):
+    for c in mesh.local_coords:
         blocks[c] = _copy_to(tensor[_block_index(spec, mesh, tensor.shape, c)], mesh.devices[c])
     return ShardedTensor(blocks, mesh, spec)
 
@@ -116,7 +128,8 @@ class ShardedTensor(torch.Tensor):
     """A global tensor held as blocks on a :class:`~.mesh.Mesh` (see the
     module docstring).  Build one with :func:`distribute`, or from blocks
     with ``ShardedTensor(blocks, mesh, spec)``: ``blocks`` an object array
-    of the mesh's shape."""
+    of the mesh's shape (``None`` at the coordinates of other
+    processes)."""
 
     __torch_function__ = torch._C._disabled_torch_function_impl
 
@@ -125,20 +138,20 @@ class ShardedTensor(torch.Tensor):
         spec = tuple(spec)
         if blocks.shape != mesh.devices.shape:
             raise ValueError(f"blocks {blocks.shape} do not match the mesh {mesh.devices.shape}")
-        first = blocks.flat[0]
+        first = blocks[mesh.local_coords[0]]
         if len(spec) != first.ndim:
             raise ValueError(f"spec {spec} does not match {first.ndim}-d blocks")
         shape = list(first.shape)
         for d, ax in enumerate(spec):
             if ax is not None:
                 shape[d] *= mesh.shape[ax]
-        for c in np.ndindex(blocks.shape):
+        for c in mesh.local_coords:
             b = blocks[c]
             if b.shape != first.shape or b.dtype != first.dtype:
-                raise ValueError(f"block {c} is {tuple(b.shape)} {b.dtype}, block 0 is "
+                raise ValueError(f"block {c} is {tuple(b.shape)} {b.dtype}, the first is "
                                  f"{tuple(first.shape)} {first.dtype}")
         r = torch.Tensor._make_wrapper_subclass(
-            cls, shape, dtype=first.dtype, device=mesh.devices.flat[0], requires_grad=False
+            cls, shape, dtype=first.dtype, device=mesh.local_device, requires_grad=False
         )
         r._xt_blocks = blocks
         r._xt_mesh = mesh
@@ -147,7 +160,8 @@ class ShardedTensor(torch.Tensor):
 
     @property
     def blocks(self) -> np.ndarray:
-        """The blocks, an object array of the mesh's shape."""
+        """The blocks, an object array of the mesh's shape (``None`` at
+        other processes' coordinates)."""
         return self._xt_blocks
 
     @property
@@ -164,7 +178,8 @@ class ShardedTensor(torch.Tensor):
         return _block_index(self.spec, self.mesh, self.shape, coord)
 
     def full_tensor(self) -> torch.Tensor:
-        """The global tensor on the mesh's first device (one assembly)."""
+        """The global tensor on the process's first device (one assembly;
+        in a multi-process job every process makes it)."""
         ASSEMBLIES["count"] += 1
         return _assemble(self)
 
@@ -207,20 +222,32 @@ class ShardedTensor(torch.Tensor):
 
 
 def _assemble(x: ShardedTensor) -> torch.Tensor:
-    """Concatenate the blocks (the first copy along replicated mesh axes)
-    on the mesh's first device."""
+    """Concatenate the blocks on the process's first device: of the copies
+    along replicated mesh axes its own where it holds one, else the first,
+    brought from the process that holds it."""
+    from .collectives import fetch
+
     mesh, spec = x.mesh, x.spec
-    dev = mesh.devices.flat[0]
+    dev = mesh.local_device
     dim_of = {ax: d for d, ax in enumerate(spec) if ax is not None}
-    used = [a for a in mesh.axis_names if a in dim_of]
-    sub = x.blocks[tuple(slice(None) if a in dim_of else 0 for a in mesh.axis_names)]
+    used = [mesh.axis_index(a) for a in mesh.axis_names if a in dim_of]
+    # the copies of each part, by its index along the used axes
+    copies = {}
+    for c in mesh.all_coords:
+        copies.setdefault(tuple(c[i] for i in used), []).append(c)
+    source = {k: next((c for c in cs if mesh.is_local(c)), cs[0]) for k, cs in copies.items()}
+    # every process needs every part it holds no copy of: (first copy, its
+    # first coordinate), in the same order on every process
+    needs = [(cs[0], mesh.first_coord_of(p)) for cs in copies.values()
+             for p in mesh.processes if p not in {int(mesh.process_ids[c]) for c in cs}]
+    got = fetch(x.blocks, mesh, needs)
+    parts = np.empty(tuple(mesh.devices.shape[i] for i in used), dtype=object)
+    for k, c in source.items():
+        parts[k] = (x.blocks[c] if mesh.is_local(c) else got[c]).to(dev)
     if not used:
-        # replicated along every mesh axis: the first block is the tensor
-        return sub.to(dev, copy=True)
-    parts = np.empty(sub.shape, dtype=object)
-    for c in np.ndindex(sub.shape):
-        parts[c] = sub[c].to(dev)
-    for ax in reversed(used):
+        # replicated along every mesh axis: one block is the tensor
+        return parts[()].to(dev, copy=True)
+    for ax in reversed([a for a in mesh.axis_names if a in dim_of]):
         joined = np.empty(parts.shape[:-1], dtype=object)
         for c in np.ndindex(joined.shape):
             joined[c] = torch.cat([parts[c + (k,)] for k in range(parts.shape[-1])], dim=dim_of[ax])
@@ -295,7 +322,7 @@ def _pointwise(func, args, kwargs):
                 or tuple(target.shape) != out_shape:
             return NotImplemented
     results = np.empty(mesh.devices.shape, dtype=object)
-    for c in np.ndindex(mesh.devices.shape):
+    for c in mesh.local_coords:
         local = [_local_operand(x, c, out_spec, out_shape, mesh)
                  if isinstance(x, torch.Tensor) else x for x in flat]
         a, k = tree_unflatten(local, tree)
@@ -306,14 +333,14 @@ def _pointwise(func, args, kwargs):
 
 
 def _wrap_results(results, mesh, spec):
-    first = results.flat[0]
+    first = first_local(results)
     if isinstance(first, torch.Tensor):
         return ShardedTensor(results, mesh, spec)
     # a tuple of tensors, one ShardedTensor each
     outs = []
     for i in range(len(first)):
         part = np.empty(results.shape, dtype=object)
-        for c in np.ndindex(results.shape):
+        for c in mesh.local_coords:
             part[c] = results[c][i]
         outs.append(ShardedTensor(part, mesh, spec))
     return tuple(outs)
@@ -322,7 +349,7 @@ def _wrap_results(results, mesh, spec):
 # --------------------------------------------------------------- view ops
 def _blockwise(x: ShardedTensor, spec, fn):
     blocks = np.empty(x.blocks.shape, dtype=object)
-    for c in np.ndindex(blocks.shape):
+    for c in x.mesh.local_coords:
         blocks[c] = fn(x.blocks[c])
     return ShardedTensor(blocks, x.mesh, spec)
 
@@ -468,7 +495,7 @@ _VIEW_HANDLERS = {
 
 # ------------------------------------------------------------------ gather
 def _gathered(func, args, kwargs):
-    """Assemble every sharded operand, run ``func`` on the mesh's first
+    """Assemble every sharded operand, run ``func`` on the process's first
     device, and shard the result by the first sharded operand's spec where
     its shape allows.  An in-place op on a sharded tensor is written back
     into its blocks."""
@@ -481,7 +508,7 @@ def _gathered(func, args, kwargs):
     target = args[0] if args and isinstance(args[0], ShardedTensor) else None
     if target is not None and _is_inplace(func):
         whole = full[id(target)]
-        for c in np.ndindex(target.blocks.shape):
+        for c in target.mesh.local_coords:
             target.blocks[c].copy_(whole[_block_index(target.spec, target.mesh, target.shape, c)])
         return target
 

@@ -46,7 +46,7 @@ from ..core.grid_ufunc import (
 )
 from ..core.padding import pad
 from ..core.signature import GridUFuncSignature
-from .collectives import coords, shard_map
+from .collectives import coords, first_local, shard_map
 from .face_sharded import FaceSetup, face_halo_pad_widths
 from .halo import ring_halo_pad
 from .mesh import Mesh, partition_spec
@@ -192,8 +192,8 @@ def _pad_blocks(arr: GriddedArray, blocks: np.ndarray, widths, *, mesh: Mesh, lo
             da = pad(da, grid=local_grid, boundary_width=local_bw, boundary=bc, fill_value=fv)
         local[c] = da
     for n, w in ring_bw.items():
-        dim = local_grid.axes[n]._get_position_name(local.flat[0])[1]
-        num = local.flat[0].get_axis_num(dim)
+        dim = local_grid.axes[n]._get_position_name(first_local(local))[1]
+        num = first_local(local).get_axis_num(dim)
         data = np.empty(blocks.shape, dtype=object)
         for c in coords(mesh):
             data[c] = local[c].data
@@ -207,7 +207,7 @@ def _pad_blocks(arr: GriddedArray, blocks: np.ndarray, widths, *, mesh: Mesh, lo
         return local
 
     def arranged(garrs):
-        first = garrs.flat[0]
+        first = first_local(garrs)
         ydim = local_grid.axes[fs.y_axis]._get_position_name(first)[1]
         xdim = local_grid.axes[fs.x_axis]._get_position_name(first)[1]
         rest = [d for d in first.dims if d not in (fs.facedim, ydim, xdim)]

@@ -15,6 +15,11 @@ same program, e.g.::
 Placing operands on the mesh and assembling a global array count 0, as
 GSPMD's resharding does not appear in a jaxpr.  A collective in a Python
 loop counts once per pass: the count is of one run, not of a trace.
+
+On a mesh over several processes each process counts the collectives it
+takes part in, which are all of the program's: every process runs the
+same program, so each process's count equals the single-process count
+and the jaxpr's, as each JAX process traces the whole program.
 """
 
 from __future__ import annotations
