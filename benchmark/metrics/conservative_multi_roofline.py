@@ -1,0 +1,14 @@
+"""Kernel H (`csrc/conservative.cu`, several variables): `conservative_kernel`
+under the conservative `transform_multi` span.
+
+The share of the roofline: the least time of the step's work for this
+kernel over the device time of the operations below, in %."""
+
+from benchmark.readers import roofline_share
+
+NAMES = ("conservative_kernel",)
+SPAN = "grid.transform_multi.conservative"
+
+
+def read(trace, cell):
+    return roofline_share(trace, cell, "conservative_multi", NAMES, SPAN)
