@@ -1,0 +1,8 @@
+"""``arith.host_ms`` in the cells that report ``analysis_ms.noisy``, whose
+runs spread by several % between processes."""
+
+from benchmark.program_spans import host_ms
+
+
+def read(trace, cell):
+    return host_ms(trace, cell, "arith")

@@ -22,6 +22,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .device import resolve_device
 
 __all__ = ["GriddedArray", "as_tensor"]
@@ -197,6 +198,7 @@ class GriddedArray:
         return self.transpose(*rest, *dims)
 
     # -- arithmetic --------------------------------------------------------
+    @span("xtt.arith.binop")
     def _binop(self, other, op):
         if isinstance(other, GriddedArray):
             a, b, dims = _broadcast_align(self, other)
@@ -205,6 +207,7 @@ class GriddedArray:
         a, b = _promoted(as_tensor(self.data), other, op)
         return self.with_data(op(a, _operand(b, a.device)))
 
+    @span("xtt.arith.binop")
     def _rbinop(self, other, op):
         a, b = _promoted(as_tensor(self.data), other, op)
         return self.with_data(op(_operand(b, a.device), a))
@@ -233,9 +236,11 @@ class GriddedArray:
     def __rtruediv__(self, other):
         return self._rbinop(other, torch.true_divide)
 
+    @span("xtt.arith.unary")
     def __neg__(self):
         return self.with_data(-as_tensor(self.data))
 
+    @span("xtt.arith.unary")
     def __abs__(self):
         return self.with_data(torch.abs(as_tensor(self.data)))
 
@@ -316,6 +321,7 @@ class GriddedArray:
         float32 and rounded once.  Takes jnp's ``keepdims`` and ``dtype``."""
         return self._reduce("mean", dims, **kwargs)
 
+    @span("xtt.arith.reduce")
     def _reduce(self, how, dims, keepdims=False, dtype=None, **kwargs):
         if kwargs:
             raise TypeError(f"{how}() got unexpected keyword arguments {sorted(kwargs)}")

@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import gridops
 from .axis import Axis
 from .dataarray import GriddedArray, _broadcast_align, _expand_to, as_tensor
@@ -367,6 +368,7 @@ class Grid:
             dims.append(matching[0])
         return dims
 
+    @span("xtt.arith.get_metric")
     def get_metric(self, array: GriddedArray, axes) -> GriddedArray:
         """Find or derive the metric for ``axes`` that broadcasts against
         ``array``, as a tensor on ``array``'s device:
@@ -443,6 +445,7 @@ class Grid:
             )
         return metric_vars
 
+    @span("xtt.grid_api.interp_like")
     def interp_like(self, array, like, boundary=None, fill_value=None):
         """Interpolate ``array`` to the grid positions of ``like`` along
         every axis where they differ.  An ``xr.DataArray`` ``array`` is
@@ -763,6 +766,7 @@ class Grid:
             )
         return signatures
 
+    @span("xtt.grid_api.apply_as_grid_ufunc")
     def apply_as_grid_ufunc(
         self,
         func: Callable,
@@ -789,22 +793,27 @@ class Grid:
         )
 
     # ------------------------------------------------------------ op methods
+    @span("xtt.grid_api.interp")
     def interp(self, da, axis, **kwargs):
         """Interpolate neighbouring points to the intermediate position."""
         return self._1d_grid_ufunc_dispatch("interp", da, axis, **kwargs)
 
+    @span("xtt.grid_api.diff")
     def diff(self, da, axis, **kwargs):
         """Difference neighbouring points onto the intermediate position."""
         return self._1d_grid_ufunc_dispatch("diff", da, axis, **kwargs)
 
+    @span("xtt.grid_api.min")
     def min(self, da, axis, **kwargs):
         """Minimum of neighbouring points."""
         return self._1d_grid_ufunc_dispatch("min", da, axis, **kwargs)
 
+    @span("xtt.grid_api.max")
     def max(self, da, axis, **kwargs):
         """Maximum of neighbouring points."""
         return self._1d_grid_ufunc_dispatch("max", da, axis, **kwargs)
 
+    @span("xtt.grid_api.cumsum")
     def cumsum(
         self,
         da: GriddedArray,
@@ -937,17 +946,20 @@ class Grid:
         )
         return {x_axis_name: x_component, y_axis_name: y_component}
 
+    @span("xtt.grid_api.diff_2d_vector")
     def diff_2d_vector(self, vector, **kwargs):
         """Difference a 2D C-grid vector ``{axis: component}`` onto cell
         centres, each component along its own axis."""
         return self._apply_vector_function(self.diff, vector, **kwargs)
 
+    @span("xtt.grid_api.interp_2d_vector")
     def interp_2d_vector(self, vector, **kwargs):
         """Interpolate a 2D C-grid vector ``{axis: component}`` onto cell
         centres, each component along its own axis."""
         return self._apply_vector_function(self.interp, vector, **kwargs)
 
     # ----------------------------------------------- metric-weighted calculus
+    @span("xtt.arith.derivative")
     def derivative(self, da, axis, **kwargs):
         """``diff`` along ``axis`` divided by the axis's metric at the
         result's position.  For xarray input the division is xarray's, on
@@ -960,6 +972,7 @@ class Grid:
             dx = to_xarray(dx)  # xarray broadcasts the two by dim name
         return diff / dx
 
+    @span("xtt.arith.integrate")
     def integrate(self, da, axis, **kwargs):
         """The sum of ``da`` times the metric of ``axis`` over the axes'
         dims.  NaN in floating data is skipped (taken as 0; as in
@@ -981,6 +994,7 @@ class Grid:
             out = reattach_coords(out, self, xr_args, set(), True)
         return out
 
+    @span("xtt.arith.cumint")
     def cumint(self, da, axis, **kwargs):
         """:meth:`cumsum` of ``da`` times the metric of ``axis``."""
         from ..adapters.xarray_adapter import as_native, collect_xr_inputs
@@ -995,6 +1009,7 @@ class Grid:
             out = reattach_coords(out, self, xr_args, new_dims, kwargs.get("keep_coords", False))
         return out
 
+    @span("xtt.arith.average")
     def average(self, da, axis, **kwargs):
         """The metric-weighted mean over the axes' dims, NaN cells left out
         of both sums (xarray's ``weighted.mean``).  Keywords go to
@@ -1020,6 +1035,7 @@ class Grid:
             out = reattach_coords(out, self, xr_args, set(), True)
         return out
 
+    @span("xtt.grid_api.transform")
     def transform(self, da, axis, target, **kwargs):
         """Convert ``da`` to new 1D coordinates along ``axis``.
 
@@ -1055,6 +1071,7 @@ class Grid:
             )
         return out
 
+    @span("xtt.grid_api.transform_multi")
     def transform_multi(self, das, axis, target, **kwargs):
         """Transform several arrays onto the same target coordinate:
         exactly ``[self.transform(da, axis, target, **kwargs) for da in

@@ -23,6 +23,7 @@ from .core.dataarray import GriddedArray
 from .core.dataset import Dataset
 from .core.grid import Grid
 from .ops.transform import interp_1d_linear
+from .utils.profiling import span
 
 __all__ = ["build_grid", "dryrun_multichip", "step"]
 
@@ -47,6 +48,7 @@ def build_grid(nx: int, ny: int) -> Grid:
     )
 
 
+@span("xtt.grid_api.entry_step")
 def step(
     u: torch.Tensor,
     v: torch.Tensor,

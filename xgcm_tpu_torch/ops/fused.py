@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.dataarray import as_tensor
+from ..utils.profiling import span
 from .kernels.face_shift import face_shift
 from .kernels.shift import shift
 
@@ -122,38 +123,39 @@ def fused_face_shift_op(
     one.  Every choice is a ``torch.where`` or an exact gather, so NaN and
     infinities reach exactly the cells the generic engine gives them.
     """
-    x = as_tensor(x).contiguous()
-    if axis_is_x:
-        side = 0 if direction == "left" else 1
-    else:
-        side = 2 if direction == "left" else 3
-    strips = _edge_strips(x)  # (..., F, 4, L)
+    with span("xtt.face_halo.gather"):
+        x = as_tensor(x).contiguous()
+        if axis_is_x:
+            side = 0 if direction == "left" else 1
+        else:
+            side = 2 if direction == "left" else 3
+        strips = _edge_strips(x)  # (..., F, 4, L)
 
-    src_face, src_side = plan.src_face[:, side], plan.src_side[:, side]
-    picked = strips[..., src_face, src_side, :]  # (..., F, L)
-    if partner is not None:
-        # axis-swapping connections read the PARTNER component's edge
-        picked_p = _edge_strips(as_tensor(partner))[..., src_face, src_side, :]
-        picked = torch.where(plan.swap[:, side, None], picked_p.to(x.dtype), picked)
-    picked = torch.where(plan.tang_flip[:, side, None], picked.flip(-1), picked)
-    if vector_axis_code is not None:
-        # sides 0/1 are x-axis halos, 2/3 y-axis halos; the sign is +-1,
-        # so the product is exact
-        sign = plan.sign_ortho if vector_axis_code == side // 2 else plan.sign_tang
-        picked = picked * sign[:, side, None].to(x.dtype)
+        src_face, src_side = plan.src_face[:, side], plan.src_side[:, side]
+        picked = strips[..., src_face, src_side, :]  # (..., F, L)
+        if partner is not None:
+            # axis-swapping connections read the PARTNER component's edge
+            picked_p = _edge_strips(as_tensor(partner))[..., src_face, src_side, :]
+            picked = torch.where(plan.swap[:, side, None], picked_p.to(x.dtype), picked)
+        picked = torch.where(plan.tang_flip[:, side, None], picked.flip(-1), picked)
+        if vector_axis_code is not None:
+            # sides 0/1 are x-axis halos, 2/3 y-axis halos; the sign is +-1,
+            # so the product is exact
+            sign = plan.sign_ortho if vector_axis_code == side // 2 else plan.sign_tang
+            picked = picked * sign[:, side, None].to(x.dtype)
 
-    # the basic boundary condition on unconnected edges
-    opposite = {0: 1, 1: 0, 2: 3, 3: 2}[side]
-    if boundary in ("periodic", None):
-        basic = strips[..., opposite, :]
-    elif boundary == "fill":
-        basic = torch.full_like(strips[..., side, :], fill_value)
-    elif boundary == "extend":
-        basic = strips[..., side, :]
-    elif boundary == "extrapolate":
-        basic = 2.0 * strips[..., side, :] - _inward_line(x, side)
-    else:
-        raise ValueError(f"unknown boundary {boundary!r}")
+        # the basic boundary condition on unconnected edges
+        opposite = {0: 1, 1: 0, 2: 3, 3: 2}[side]
+        if boundary in ("periodic", None):
+            basic = strips[..., opposite, :]
+        elif boundary == "fill":
+            basic = torch.full_like(strips[..., side, :], fill_value)
+        elif boundary == "extend":
+            basic = strips[..., side, :]
+        elif boundary == "extrapolate":
+            basic = 2.0 * strips[..., side, :] - _inward_line(x, side)
+        else:
+            raise ValueError(f"unknown boundary {boundary!r}")
 
-    halo = torch.where(plan.connected[:, side, None], picked, basic).contiguous()
+        halo = torch.where(plan.connected[:, side, None], picked, basic).contiguous()
     return face_shift(x, halo, op, direction, axis_is_x)

@@ -13,7 +13,8 @@ The library is built at first use into ``build/kernels/`` beside the
 package, keyed on a hash of the sources and flags, and loaded with
 ``ctypes``.  Nothing here runs at import time, so the module imports on a
 host with no ``nvcc`` and no card.  Each wrapper counts its launches in
-:data:`LAUNCHES`.
+:data:`LAUNCHES`; :func:`launch` times the first call of each C entry in
+the process into :data:`FIRST_LAUNCH_S`.
 """
 
 from __future__ import annotations
@@ -26,16 +27,19 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
 
 import torch
 
 __all__ = [
+    "FIRST_LAUNCH_S",
     "LAUNCHES",
     "build_library",
     "find_nvcc",
     "launch",
     "launch_counts",
     "load_library",
+    "reset_first_launches",
     "reset_launch_counts",
     "require_cuda",
 ]
@@ -65,6 +69,11 @@ LAUNCHES = {
     "face_shift": 0,
     "vorticity": 0,
 }
+
+# Host seconds of the first call of each C entry in the process (the
+# kernel's module load at its first launch, among the rest), by perf_counter
+# around the call; set once an entry, never reset by a run.
+FIRST_LAUNCH_S = {}
 
 # The multi-variable kernels take at most this many variables: the size of
 # the fixed pointer array of VarSet in csrc/common.cuh.
@@ -128,6 +137,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def reset_first_launches() -> None:
+    FIRST_LAUNCH_S.clear()
 
 
 def find_nvcc() -> str:
@@ -234,9 +247,16 @@ def launch(name: str, device: torch.device, *args) -> None:
     """Call the C entry ``name`` with ``args`` and the current stream of
     ``device``, with ``device`` the current card (a kernel launches on the
     current card's streams, and a tensor may live on another, as a block
-    of a sharded array does); raise on a non-zero status."""
+    of a sharded array does); raise on a non-zero status.  The first call
+    of each entry in the process is timed into :data:`FIRST_LAUNCH_S`."""
+    entry = getattr(load_library(), name)
     with torch.cuda.device(device):
-        status = getattr(load_library(), name)(*args, stream_ptr(device))
+        if name in FIRST_LAUNCH_S:
+            status = entry(*args, stream_ptr(device))
+        else:
+            t0 = time.perf_counter()
+            status = entry(*args, stream_ptr(device))
+            FIRST_LAUNCH_S[name] = time.perf_counter() - t0
     check_status(name, status)
 
 

@@ -12,6 +12,7 @@ from typing import Tuple
 
 import torch
 
+from ...utils.profiling import span
 from . import build
 
 __all__ = ["cgrid_diagnostics", "cgrid_diagnostics_plain", "DIAGNOSTICS_DTYPES"]
@@ -34,6 +35,7 @@ def cgrid_diagnostics_plain(
     return zeta, div, ke
 
 
+@span("xtt.kernels.cgrid_diagnostics")
 def cgrid_diagnostics(
     u: torch.Tensor, v: torch.Tensor, inv_dx: torch.Tensor, inv_dy: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

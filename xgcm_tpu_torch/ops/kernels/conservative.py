@@ -20,6 +20,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ...utils.profiling import span
 from . import build
 
 __all__ = [
@@ -199,6 +200,7 @@ def _launch_maybe_T(theta, phis, edges, reassociate, out_T):
     return outs
 
 
+@span("xtt.kernels.conservative")
 def conservative_rebin(
     theta: torch.Tensor,
     phi: torch.Tensor,
@@ -225,6 +227,7 @@ def conservative_rebin(
     return build.PlainBackward.apply(launch, plain, theta, phi, edges)
 
 
+@span("xtt.kernels.conservative_multi")
 def conservative_rebin_multi(
     theta: torch.Tensor,
     phis: Sequence[torch.Tensor],

@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from ..stencils import apply_pair
+from ...utils.profiling import span
 from . import build
 from .shift import _DIRECTIONS, _OPS, SHIFT_DTYPES
 
@@ -55,6 +56,7 @@ def face_shift_plain(
     return apply_pair(op, x, nb)
 
 
+@span("xtt.kernels.face_shift")
 def face_shift(
     x: torch.Tensor, halo: torch.Tensor, op: str, direction: str,
     axis_is_x: Optional[bool] = None, *, axis: Optional[int] = None,

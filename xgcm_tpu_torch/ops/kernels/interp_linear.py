@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ...utils.profiling import span
 from . import build
 
 __all__ = [
@@ -200,6 +201,7 @@ def _new_T(theta, target, like, count):
     return [torch.empty((m, cols), dtype=like.dtype, device=like.device) for _ in range(count)]
 
 
+@span("xtt.kernels.interp_linear")
 def interp_linear(
     theta: torch.Tensor,
     phi: torch.Tensor,
@@ -229,6 +231,7 @@ def interp_linear(
     return build.PlainBackward.apply(launch, plain, theta, phi, target)
 
 
+@span("xtt.kernels.interp_linear_multi")
 def interp_linear_multi(
     theta: torch.Tensor,
     phis: Sequence[torch.Tensor],

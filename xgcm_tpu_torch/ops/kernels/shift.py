@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from ..stencils import apply_pair
+from ...utils.profiling import span
 from . import build
 
 __all__ = ["shift", "shift_plain", "SHIFT_DTYPES"]
@@ -66,6 +67,7 @@ def shift_plain(
     return apply_pair(op, x, nb)
 
 
+@span("xtt.kernels.shift")
 def shift(
     x: torch.Tensor,
     axis: int,

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.profiling import span
 from . import build
 
 __all__ = ["vorticity", "vorticity_plain", "VORTICITY_DTYPES"]
@@ -37,6 +38,7 @@ def vorticity_plain(
     return zeta.to(u.dtype)
 
 
+@span("xtt.kernels.vorticity")
 def vorticity(
     u: torch.Tensor, v: torch.Tensor, inv_dx: torch.Tensor, inv_dy: torch.Tensor
 ) -> torch.Tensor:

@@ -26,6 +26,7 @@ import torch
 
 from ..core.dataarray import GriddedArray, as_tensor
 from ..core.device import get_default_device
+from ..utils.profiling import span
 from .kernels import build
 from .kernels import conservative as kg
 from .kernels import interp_linear as kc
@@ -97,6 +98,7 @@ def _kernel_serves(phi, theta, target) -> bool:
     )
 
 
+@span("xtt.transform.interp_1d_linear")
 def interp_1d_linear(
     phi,
     theta,
@@ -314,7 +316,8 @@ def _bin_edges(bins, device):
     strictly monotonic, checked on the host; decreasing bins are reversed,
     and ``flip`` says the result must be reversed back."""
     if isinstance(bins, torch.Tensor):
-        host = bins.detach().to("cpu", torch.float64).numpy()  # for the checks only
+        with span("xtt.transform.host_sync"):
+            host = bins.detach().to("cpu", torch.float64).numpy()  # for the checks only
         edges = bins.to(device)
     else:
         host = np.asarray(bins)
@@ -348,6 +351,7 @@ def _conservative_serves(phi, theta, edges) -> bool:
     )
 
 
+@span("xtt.transform.interp_1d_conservative")
 def interp_1d_conservative(phi, theta, target_theta_bins, reassociate: bool = False):
     """Conservatively rebin extensive quantity phi into theta bins along the
     last axis.
@@ -512,6 +516,7 @@ def _check_reassociate(method, reassociate):
         )
 
 
+@span("xtt.transform.transform")
 def transform(
     grid,
     axis_name: str,
@@ -615,6 +620,7 @@ def transform(
     )
 
 
+@span("xtt.transform.transform_multi")
 def transform_multi(
     grid,
     axis_name: str,
