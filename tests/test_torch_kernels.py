@@ -48,6 +48,7 @@ from xgcm_tpu_torch.ops.kernels.cgrid_diagnostics import (
     cgrid_diagnostics,
     cgrid_diagnostics_plain,
 )
+from xgcm_tpu_torch.ops.kernels import interp_linear as kc
 from xgcm_tpu_torch.ops.kernels.interp_linear import (
     _fused_multi_ref_torch,
     _fused_ref_torch,
@@ -163,6 +164,57 @@ def test_outputs_are_checked():
                 [torch.empty((3, 4), dtype=torch.float64)] * 2):
         with pytest.raises(ValueError, match="one layout"):
             build.outputs(bad, 2, (3, 4), torch.float32, torch.device("cpu"))
+
+
+@pytest.fixture
+def recorded_launches(monkeypatch):
+    """The C entries' calls, recorded instead of made: CPU tensors then go
+    through the launch wrappers up to the library."""
+    calls = []
+    monkeypatch.setattr(build, "require_cuda", lambda *tensors: None)
+    monkeypatch.setattr(build, "launch", lambda name, device, *args: calls.append((name, args)))
+    build.reset_launch_counts()
+    yield calls
+    build.reset_launch_counts()
+
+
+# targets of 5 columns (m = 4) and the (column, target) strides kernels C
+# and F read them with: shared targets have column stride 0
+TARGET_STRIDES = {
+    "shared": (lambda t: t, (0, 1)),
+    "expanded": (lambda t: t.expand(5, 4), (0, 1)),
+    "strided": (lambda t: torch.linspace(0.1, 0.9, 8)[::2], (0, 2)),
+    "per_column": (lambda t: t.expand(5, 4).contiguous(), (4, 1)),
+    "per_column_T": (lambda t: t.expand(5, 4).T.contiguous().T, (1, 5)),
+}
+
+
+@pytest.mark.parametrize("nv", [1, 3])
+@pytest.mark.parametrize("kind", TARGET_STRIDES)
+def test_launch_passes_target_strides(recorded_launches, kind, nv):
+    """Each launch wrapper makes one call of its C entry a launch, counted
+    once in build.LAUNCHES, with the targets' column and target strides as
+    the kernel reads them."""
+    make, strides = TARGET_STRIDES[kind]
+    th = torch.sort(torch.rand(5, 6), -1).values
+    t = make(torch.linspace(0.1, 0.9, 4))
+    phis = [torch.rand(5, 6) for _ in range(nv)]
+    for _ in range(2):
+        if nv == 1:
+            out = kc.interp_linear_launch(th, phis[0], t)
+            assert out.shape == (5, 4)
+        else:
+            outs = kc.interp_linear_multi_launch(th, phis, t)
+            assert [o.shape for o in outs] == [(5, 4)] * nv
+    name = "interp_linear" if nv == 1 else "interp_linear_multi"
+    assert [c[0] for c in recorded_launches] == [f"xt_{name}"] * 2
+    assert build.launch_counts()[name] == 2 and sum(build.launch_counts().values()) == 2
+    # cols, n, m and the target strides (build.SIGNATURES)
+    at = 6 if nv == 1 else 9
+    for _, args in recorded_launches:
+        assert args[at:at + 3] == (5, 6, 4)
+        t_cs = 13 if nv == 1 else 14
+        assert args[t_cs:t_cs + 2] == strides
 
 
 def test_shift_rejects_unknown_arguments():
@@ -480,6 +532,99 @@ def test_interp_multi_kernel_equals_singles_bitwise(cuda, nv):
         torch.Generator(device=cuda).manual_seed(9), cuda)
     for o, p in zip(interp_linear_multi(th, phis[:nv], t), phis):
         assert torch.equal(o.view(torch.int32), interp_linear(th, p, t).view(torch.int32))
+
+
+def _target_columns(cuda, cols, n, seed):
+    """Theta (cols, n) and eight phis for kernels C and F against their
+    shared and per-column targets: rising and falling columns, NaN heads,
+    tails and holes, all-NaN, a swapped pair (not sorted), duplicate knots,
+    -inf and +inf end knots.
+    Knots step by 1/2, 1/4, 1/8 or 0 and phis lie on a grid of 1/16, so the
+    full scan's sums are exact and the plain version's order gives the same
+    floats; the first phi is NaN at a valid knot of some columns."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    steps = 2.0 ** -torch.randint(1, 4, (cols, n), generator=g, device=cuda).float()
+    kind = torch.arange(cols, device=cuda) % 16
+    steps[kind == 7] *= torch.rand((int((kind == 7).sum()), n), generator=g, device=cuda) > 0.4
+    steps[kind == 11] *= torch.rand((int((kind == 11).sum()), n), generator=g, device=cuda) > 0.4
+    th = torch.cumsum(steps, -1) - 1.0
+    flip = (kind == 1) | (kind == 8) | (kind == 11)
+    th[flip] = th[flip].flip(-1)
+    th[kind == 2, n - 7:] = float("nan")
+    th[kind == 3, :5] = float("nan")
+    th[kind == 4, n // 3] = float("nan")
+    th[kind == 5] = float("nan")
+    th[kind == 6, n // 3: n // 3 + 2] = th[kind == 6, n // 3: n // 3 + 2].flip(-1)
+    th[kind == 8, :4] = float("nan")
+    th[kind == 8, n - 3:] = float("nan")
+    th[kind == 9, 0] = -float("inf")
+    th[kind == 10, n - 1] = float("inf")
+    phis = [torch.randint(0, 64, (cols, n), generator=g, device=cuda).float() / 16
+            for _ in range(8)]
+    phis[0][(kind % 7 == 3) & (kind != 5), n // 2] = float("nan")
+    return th, phis
+
+
+def _shared_targets(cuda, n, m, order):
+    """m shared targets over the columns' range (about -1 to 0.3 n), on the
+    knots' grid of 1/8 so many lie on a knot; at m = 36 also -inf, NaN and
+    +inf.  ``order``: rising, falling or mixed."""
+    top = 0.3 * n
+    if m == 36:
+        grid = torch.round(torch.linspace(-1.5, top + 1.0, 33, device=cuda) * 8) / 8
+        t = torch.cat([torch.tensor([-float("inf")], device=cuda), grid[:16],
+                       torch.tensor([float("nan")], device=cuda), grid[16:],
+                       torch.tensor([float("inf")], device=cuda)])
+    else:
+        t = torch.round(torch.tensor([0.4, 0.7][:m], device=cuda) * top * 8) / 8
+    if order == "falling":
+        t = t.flip(0)
+    elif order == "mixed":
+        t = t[torch.randperm(m, generator=torch.Generator().manual_seed(m)).to(cuda)]
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order", ["rising", "falling", "mixed"])
+@pytest.mark.parametrize("m", [1, 2, 36])
+@pytest.mark.parametrize("n", [90, 51])
+def test_interp_shared_targets_equal_per_column_bitwise(cuda, n, m, order, dtype):
+    """Kernels C and F with shared (m,) targets against the same targets as
+    an expand (column stride 0) and copied to a contiguous (cols, m) tensor,
+    bit for bit, and against the plain version: 1,001 columns (no tile size
+    divides it), C with a full and a broadcast phi, F at V = 2..8, with and
+    without mask_edges, in both output layouts."""
+    cols = 1001
+    th, phis = _target_columns(cuda, cols, n, seed=20 + n)
+    broadcast = phis[1][:, :1].expand(cols, n)
+    th, t = th.to(dtype), _shared_targets(cuda, n, m, order).to(dtype)
+    phis = [p.to(dtype) for p in phis]
+    broadcast = broadcast.to(dtype)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 else dict(rtol=1e-6, atol=1e-6)
+    per_column = t.expand(cols, m).contiguous()
+    for mask_edges, out_T in itertools.product((False, True), (False, True)):
+        theta = th.T.contiguous().T if out_T else th
+        for vs in [phis[:1], [broadcast], *(phis[:nv] for nv in range(2, 9))]:
+
+            def run(tg):
+                if len(vs) == 1:
+                    outs = [interp_linear(theta, vs[0], tg, mask_edges, out_T=out_T)]
+                else:
+                    outs = interp_linear_multi(theta, vs, tg, mask_edges, out_T=out_T)
+                return [o.T if out_T else o for o in outs]
+
+            build.reset_launch_counts()
+            shared, copied, expanded = run(t), run(per_column), run(t.expand(cols, m))
+            want = _fused_multi_ref_torch(th, vs, t, mask_edges)
+            case = (mask_edges, out_T, len(vs), vs[0].stride(1))
+            name = "interp_linear" if len(vs) == 1 else "interp_linear_multi"
+            assert build.launch_counts()[name] == 3, case
+            for w, s, x, p in zip(shared, copied, expanded, want):
+                assert torch.equal(w.view(bits), s.view(bits)), case
+                assert torch.equal(w.view(bits), x.view(bits)), case
+                assert_close(w.float(), p.float(), **tol)
 
 
 def _cuda_cells(cuda, cols, n, seed):

@@ -35,13 +35,17 @@
 // energy) reads one value per column, so the step's remap moves
 // (n + 1 + m) * cols * 4 bytes.  About 0.4 operations per byte at V = 4,
 // against the card's ~20 for float32 outside the tensor cores; the tensor
-// cores have no role (there is no product).
+// cores have no role (there is no product).  What holds it from that bound
+// is the latency of each block's dependent steps (a block's items each wait
+// on about ten loads and a division in turn), which the blocks an SM hide
+// only in part: the prepass on one thread a column took 29-40 % of a
+// block's time before it was spread over the column's threads (step 2).
 //
 // Design.  A block of 128 threads takes a tile of TC consecutive columns
-// (TC = 64, halved while the tile would pass kTileBudget bytes: at n = 50
-// TC = 64 for C and for F at V = 2, 32 at V = 3..6, 16 at V = 7..8; down to
-// 1 for very deep columns).  Small blocks, eight to an SM, keep the staging,
-// the prepass and the items of different blocks overlapping.
+// (TC = 64, halved while the tile would pass kTileBudget bytes: at n = 90
+// TC = 64 for C, 32 for F at V = 2..3, 16 at V = 4..7, 8 at V = 8; down to
+// 1 for very deep columns).  Small blocks, eight or nine to an SM, keep the
+// staging, the prepass and the items of different blocks overlapping.
 //   1. Staging.  theta and each phi of the tile go to shared memory as
 //      float (16-bit inputs widen here) by cp.async, so all of a block's
 //      copies are in flight at once.  A contiguous tile (the row-major
@@ -53,11 +57,24 @@
 //      knot stride 0 loads one value per column.  Addresses are a 64-bit
 //      base per tile plus offsets stepped without division; after the
 //      staging everything indexes shared memory with 32-bit ints.
-//   2. Prepass, one thread per column: the first and last valid knot, the
+//   2. Prepass, g = 128 / TC threads a column (at most 32, so a column's
+//      threads share a warp: 2 for C, 8 for F at V = 4 and n = 90; all 128
+//      threads take part down to TC = 4): the first and last valid knot, the
 //      valid range [th_min, th_max], the direction, and whether the column
 //      is sorted: every knot from the first to the last valid one is valid
-//      and theta_eff = theta * dsign does not decrease.  A descending
-//      column's row is negated in place, so rows hold theta_eff, NaN kept.
+//      and theta_eff = theta * dsign does not decrease.  Each thread scans a
+//      run of about n / g knots without a branch: how many are valid, the
+//      first and last valid one, and whether a knot lies below or above the
+//      one before it (NaN compares false, so a NaN end fails neither); the
+//      group joins its runs by __shfl_xor_sync in log2 g steps.  Adjacent
+//      knots are the neighbours compared where no NaN lies inside the valid
+//      range (the count of valid knots shows one), so this is what one pass
+//      over the valid knots gives.  The direction compares the end knots as
+//      nan_to_num would leave them (infinities clamp to FLT_MAX).  A sorted
+//      column's valid range is its end knots; any other gets a pass of
+//      min/max (only the sign of a zero bound can differ from one pass, and
+//      the bounds are only compared).  Each thread negates its own run of a
+//      descending row in place, so rows hold theta_eff, NaN kept.
 //   3. Work items.  Each thread takes (column, target) items, numbered along
 //      the output's smaller stride (target-fastest for (cols, m) outputs,
 //      column-fastest for the out_T (m, cols) layout), so consecutive threads
@@ -65,8 +82,13 @@
 //      mapping.  A target that a clamp or the edge mask decides needs no
 //      interval.  On a sorted column at most one interval matches, so a
 //      binary search over [first, last] for the last knot with
-//      theta_eff <= t_eff finds it (~6 steps at n = 50 instead of 50
-//      compares).  Its boundary cases, each giving what the full scan gives:
+//      theta_eff <= t_eff finds it (~7 steps at n = 90 instead of 90
+//      compares); theta_eff[first], which decides whether a target needs
+//      it, is an end of the valid range in the metadata.  A walk along each
+//      column's sorted knots and shared targets, in place of the search, was
+//      measured slower at these shapes (the search's loads overlap across
+//      items; the walk's are a chain).  The search's boundary cases, each
+//      giving what the full scan gives:
 //        - t_eff NaN or +inf: no interval matches (the scan's
 //          !(theta_eff[k+1] <= t_eff) fails for every k), r = fma(t_eff, 0,
 //          0) = NaN, then the clamps decide;
@@ -88,12 +110,13 @@
 //      computes and stores each variable with C's code (value()), so F's
 //      registers do not grow with V and F equals V calls of C bit for bit.
 // Shared memory per block: TC * (16 + 4 r (1 + V') + 4 V'') bytes, r = n or
-// n | 1, V' phis staged in full and V'' broadcast (C on the step: 14,336
-// bytes at TC = 64; F at V = 4 and n = 50: 33,152 bytes at TC = 32).
-// Registers (-Xptxas -v, the build line of chip_smoke.py): 50-64 per thread
-// over the 32 instantiations, capped at 64 by __launch_bounds__(128, 8) so
-// that eight blocks fit an SM; the cap costs some instantiations a few
-// spill stores (164 bytes over the whole library).
+// n | 1, V' phis staged in full and V'' broadcast (C on the step: 24,576
+// bytes at TC = 64 and n = 90, nine blocks an SM; F at V = 4 and n = 90:
+// 29,376 bytes at TC = 16, seven blocks, as the shared memory allows).
+// Registers (-Xptxas -v, the build line of chip_smoke.py): 54-64 per thread
+// over the 32 instantiations, capped by __launch_bounds__ so that nine blocks
+// fit an SM for C (54-56, no spills) and eight for F (64; the cap costs F at
+// V >= 3 a few spill stores, 464 bytes over the whole library).
 // Limit: a block must hold at least one column, so n is bounded by about
 // 227 KB / (4 (1 + V)) (28,000 knots for C, 6,300 for F at V = 8); deeper
 // columns get cudaErrorInvalidValue, and the wrapper raises.
@@ -107,6 +130,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxTile = 64;             // columns a block takes at most
+constexpr int kMaxGroup = 32;            // threads a column's prepass takes at most
 constexpr int kTileBudget = 48 * 1024;   // shared bytes a tile aims to stay under
 constexpr int kMaxShared = 227 * 1024;   // what one block may have on the H100
 
@@ -154,49 +178,89 @@ __device__ __forceinline__ int search(const float* row, int lo, int last, float 
   return lo;
 }
 
-// The prepass of one column row in shared memory: first and last valid
-// knot, the valid range, the direction and whether the column is sorted
-// (every knot from the first to the last valid one valid, and theta_eff not
-// decreasing).  A descending row is negated in place, so the row then holds
-// theta_eff with NaN kept.
-__device__ __forceinline__ ColMeta prepare_column(float* row, int n, int check_flip) {
-  int first = -1, last = -1;
-  float mn = INFINITY, mx = -INFINITY, prev = 0.0f;
-  bool up = true, down = true, hole = false, gap = false;
-  for (int k = 0; k < n; ++k) {
+// A run of knots of one column row: its first and last valid knot (first =
+// n, last = -1: none), how many are valid, and fails: bit 0 set where a knot
+// lies below the knot before it, bit 1 where one lies above it (a NaN
+// compares false, so it fails neither).
+struct Span {
+  int first, last, valid, fails;
+};
+
+__device__ __forceinline__ Span scan_span(const float* row, int k0, int k1, int n) {
+  Span s{n, -1, 0, 0};
+  if (k0 >= k1) return s;
+  float prev = k0 > 0 ? row[k0 - 1] : NAN;
+#pragma unroll 4
+  for (int k = k0; k < k1; ++k) {
     const float v = row[k];
-    if (isnan(v)) {
-      hole |= first >= 0;  // a NaN after the first valid knot ...
-      continue;
-    }
-    if (first < 0) {
-      first = k;
-    } else {
-      up &= v >= prev;
-      down &= v <= prev;
-      gap |= hole;  // ... with a valid knot after it
-    }
-    last = k;
-    mn = fminf(mn, v);
-    mx = fmaxf(mx, v);
+    const bool ok = !isnan(v);
+    s.valid += ok;
+    s.first = ok ? min(s.first, k) : s.first;
+    s.last = ok ? k : s.last;
+    s.fails |= (int)(v < prev) | (int)(v > prev) << 1;
     prev = v;
   }
-  int info = last < 0 ? 0 : last;
-  if (first >= 0) {
-    bool desc = false;
-    if (check_flip) {
-      // compared as nan_to_num would leave them (infinities clamp to FLT_MAX)
-      const float f = fminf(fmaxf(row[first], -FLT_MAX), FLT_MAX);
-      const float l = fminf(fmaxf(row[last], -FLT_MAX), FLT_MAX);
-      desc = l < f;
-    }
-    if (desc) {
-      for (int k = first; k <= last; ++k) row[k] = -row[k];
-      info |= kDesc;
-    }
-    if (!gap && (desc ? down : up)) info |= kSorted;
+  return s;
+}
+
+// The least and greatest valid knot of a run (a column that is not sorted).
+__device__ __forceinline__ void scan_range(const float* row, int k0, int k1, float& mn,
+                                           float& mx) {
+  for (int k = k0; k < k1; ++k) {
+    const float v = row[k];
+    if (isnan(v)) continue;
+    mn = fminf(mn, v);
+    mx = fmaxf(mx, v);
   }
-  return ColMeta{first, info, mn, mx};
+}
+
+// The prepass of a tile (step 2), g threads a column: the column's
+// metadata into meta[c], and a descending row negated in place, so the row
+// then holds theta_eff with NaN kept.  Every thread of the block calls it.
+__device__ __forceinline__ void prepare_tile(float* th_s, int rs, ColMeta* meta, int tc, int n,
+                                             int g, int check_flip) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int c = threadIdx.x / g, h = threadIdx.x - c * g;
+  const bool active = c < tc;
+  float* row = th_s + c * rs;
+  const int kn = (n + g - 1) / g;
+  const int k0 = min(n, h * kn), k1 = active ? min(n, k0 + kn) : k0;
+  Span s = scan_span(row, k0, k1, n);
+  for (int d = 1; d < g; d <<= 1) {  // the group's lanes differ in the bits below g
+    s.first = min(s.first, __shfl_xor_sync(kAll, s.first, d));
+    s.last = max(s.last, __shfl_xor_sync(kAll, s.last, d));
+    s.valid += __shfl_xor_sync(kAll, s.valid, d);
+    s.fails |= __shfl_xor_sync(kAll, s.fails, d);
+  }
+  const bool any = active && s.valid > 0;
+  const int first = any ? s.first : -1, last = any ? s.last : -1;
+  // the valid knots are those of [first, last] and the valid neighbours
+  // the ones compared, as in one pass over the valid knots, if no NaN lies
+  // between them
+  const bool gap = s.valid != last - first + 1;
+  const float fv = any ? row[first] : 0.0f, lv = any ? row[last] : 0.0f;
+  bool desc = false;
+  if (any && check_flip) {
+    // compared as nan_to_num would leave them (infinities clamp to FLT_MAX)
+    const float f = fminf(fmaxf(fv, -FLT_MAX), FLT_MAX);
+    const float l = fminf(fmaxf(lv, -FLT_MAX), FLT_MAX);
+    desc = l < f;
+  }
+  const bool sorted = any && !gap && !(s.fails & (desc ? 2 : 1));
+  // the valid range: the end knots of a sorted column, else a pass of min/max
+  float mn = sorted ? (desc ? lv : fv) : INFINITY, mx = sorted ? (desc ? fv : lv) : -INFINITY;
+  if (__any_sync(kAll, any && !sorted)) {
+    if (any && !sorted) scan_range(row, k0, k1, mn, mx);
+    for (int d = 1; d < g; d <<= 1) {
+      mn = fminf(mn, __shfl_xor_sync(kAll, mn, d));
+      mx = fmaxf(mx, __shfl_xor_sync(kAll, mx, d));
+    }
+  }
+  if (desc)
+    for (int k = max(k0, first); k < min(k1, last + 1); ++k) row[k] = -row[k];
+  if (active && h == 0)
+    meta[c] = ColMeta{first, (any ? last : 0) | (desc ? kDesc : 0) | (sorted ? kSorted : 0),
+                      mn, mx};
 }
 
 // A target against a column: its effective value and which clamp, if any,
@@ -217,9 +281,11 @@ __device__ __forceinline__ Where where(const ColMeta& cm, float t, int mask_edge
 }
 
 // Whether a target needs the interval of a sorted column; then
-// theta_eff[first] <= te < +inf.
-__device__ __forceinline__ bool searched(const ColMeta& cm, const float* row, const Where& w) {
-  return w.interior && (cm.info & kSorted) && w.te < INFINITY && row[cm.first] <= w.te;
+// theta_eff[first] <= te < +inf.  On a sorted column theta_eff[first] is an
+// end of the valid range: th_min, or -th_max where the column descends.
+__device__ __forceinline__ bool searched(const ColMeta& cm, const Where& w) {
+  const float e_first = (cm.info & kDesc) ? -cm.th_max : cm.th_min;
+  return w.interior && (cm.info & kSorted) && w.te < INFINITY && e_first <= w.te;
 }
 
 // The theta side of interval k of a sorted column (k < 0: none matches),
@@ -269,8 +335,10 @@ __device__ __forceinline__ float value(const float* row, const float* ph, int pk
   return r;
 }
 
+// Nine blocks of C on the step fit an SM's shared memory (24,576 bytes each)
+// and, at 56 registers, its register file; F's tiles allow seven or eight.
 template <int NV, typename TH, typename PH>
-__global__ void __launch_bounds__(kThreads, 8) interp_linear_kernel(
+__global__ void __launch_bounds__(kThreads, NV == 1 ? 9 : 8) interp_linear_kernel(
     const TH* __restrict__ th, const xt::VarSet<PH> vars, const float* __restrict__ tg,
     long long cols, int n, int m, int tile, long long th_cs, long long th_ks, long long t_cs,
     long long t_ms, long long o_cs, long long o_ms, int mask_edges, int check_flip) {
@@ -298,9 +366,8 @@ __global__ void __launch_bounds__(kThreads, 8) interp_linear_kernel(
   xt::wait_copies();
   __syncthreads();
 
-  // 2. the prepass, one thread per column
-  for (int c = threadIdx.x; c < tc; c += blockDim.x)
-    meta[c] = prepare_column(th_s + c * rs, n, check_flip);
+  // 2. the prepass, g threads a column
+  prepare_tile(th_s, rs, meta, tc, n, min(kThreads / tile, kMaxGroup), check_flip);
   __syncthreads();
 
   // 3. (column, target) items numbered along the output's smaller stride
@@ -328,7 +395,7 @@ __global__ void __launch_bounds__(kThreads, 8) interp_linear_kernel(
     const int last = cm.info & kIndex;
     const Where w = where(cm, tg[gc * t_cs + j * t_ms], mask_edges);
     // 4. the one interval of a sorted column, shared by the variables
-    const int k = searched(cm, row, w) ? search(row, cm.first, last, w.te) : -1;
+    const int k = searched(cm, w) ? search(row, cm.first, last, w.te) : -1;
     const Side sd = side(row, k, last);
     const float* p = ph_base;
 #pragma unroll
