@@ -225,18 +225,15 @@ def _run(case):
     want = jax.jit(jfn)(*datas)
     jcc = jax_count(jfn, *datas)
     sg = tpar.ShardedGrid(tgrid, tmesh, spec)
-    # 13 faces do not divide 4 shards: the inputs stay whole, and each
-    # result's real faces are assembled once (the dummy faces dropped)
-    dummy = kind == "llc"
-    ta = {k: xtt.GriddedArray(d, dims, name=k) for k, (d, dims) in fields.items()}
-    if not dummy:
-        ta = {k: sg.shard(a) for k, a in ta.items()}
+    # 13 faces do not divide 4 shards: the inputs and results take the
+    # padded layout, the dummy faces riding as the last block's padding
+    ta = {k: sg.shard(xtt.GriddedArray(d, dims, name=k)) for k, (d, dims) in fields.items()}
     box = []
     tpar.reset_assembly_count()
     tcc = torch_count(lambda: box.extend(_apply(xtt, tpar, tgrid, tmesh, spec,
                                                 specs(xtt, ta), via_sg)))
-    # no input gathered, no result assembled but for dropping dummy faces
-    assert tpar.assembly_count() == (len(box) if dummy else 0)
+    # no input gathered, no result assembled
+    assert tpar.assembly_count() == 0
     ja = {k: xgcm_tpu.GriddedArray(d, dims, name=k) for k, (d, dims) in fields.items()}
     return box, tcc, want, jcc, jgrid, sg, ja, ta
 
@@ -251,7 +248,7 @@ def test_apply_many_matches_jax(case):
     assert tcc == {("psum" if "psum" in k else k): v for k, v in jcc.items()}
     assert len(got) == len(want)
     for g, w, js, ts in zip(got, want, specs(xgcm_tpu, ja), specs(xtt, ta)):
-        assert isinstance(g.data, tpar.ShardedTensor) != (kind == "llc")
+        assert isinstance(g.data, tpar.ShardedTensor)
         if exact:
             assert_values(g, np.asarray(w))
         else:

@@ -411,13 +411,17 @@ def test_missing_other_component_raises():
 
 
 def test_dummy_faces_are_dropped_from_the_result():
-    """13 LLC faces on 4 shards: 16 faces ride the mesh, the result holds
-    the 13 real ones, on the mesh's first device."""
+    """13 LLC faces on 4 shards: 16 faces ride the mesh, the result stays
+    sharded in the padded layout (4 faces a block, 3 of them dummy on the
+    last) and shows the 13 real ones, with no assembly."""
     jgrid, _, _, _ = _setup("llc")
     ja, ta = _arrays("llc", "c")
     sg = _sgrid("llc", "f4")
+    tpar.reset_assembly_count()
     out = sg.diff(ta, "X", boundary="fill")
-    assert out.data.shape == (13, N, N) and not isinstance(out.data, tpar.ShardedTensor)
+    assert tpar.assembly_count() == 0
+    assert out.data.shape == (13, N, N) and isinstance(out.data, tpar.ShardedTensor)
+    assert [b.shape[0] for b in out.data.blocks] == [4] * 4
     assert_values(out, jgrid.diff(ja, "X", boundary="fill"))
 
 

@@ -38,8 +38,9 @@ from benchmark import harness, trace  # noqa: E402
 
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 TINY = {"llc4320-face": {"ny": 24, "nx": 32, "nz": 12},
-        "llc4320-level": {"ny": 16, "nx": 16}}
-PROGRAM_LAYERS = ("grid_api", "arith", "face_halo", "transform", "kernels")
+        "llc4320-level": {"ny": 16, "nx": 16},
+        "llc4320-levels-4gpu": {"ny": 16, "nx": 16, "nz": 2}}
+PROGRAM_LAYERS = ("grid_api", "arith", "face_halo", "transform", "kernels", "sharded")
 SPAN_CALL = re.compile(r"""\bspan\(\s*["']([^"']+)["']""")
 
 
@@ -268,8 +269,11 @@ def test_cell_rehearsal_reports_program_metrics(name, monkeypatch):
                             time.perf_counter())
     assert line["correct"] is True
     want = _listed(name)
-    assert want and want <= set(line["metrics"])
+    assert want <= set(line["metrics"])
     assert all(line["metrics"][m]["value"] > 0 for m in want)
+    # a cell with no span's host time listed reads the sharded layer's
+    # assemblies: 0, nothing assembled
+    assert want or line["metrics"]["sharded.assemblies"]["value"] == 0
     calls = sum(t["calls"] for n, t in utils.span_totals().items()
                 if n.startswith("xtt.kernels."))
     assert calls == line["attempted"] * sum(cell.recipe.LAUNCHES.values())

@@ -201,14 +201,15 @@ def mesh_of(par, processes: int, cpu):
 
 
 def _record(result) -> dict:
-    """What one result holds in this process: its blocks by coordinate, or
-    the whole tensor where it is a plain one."""
+    """What one result holds in this process: its blocks by coordinate
+    (without the padding of a padded layout), or the whole tensor where it
+    is a plain one."""
     data = result.data if hasattr(result, "dims") else result
     from xgcm_tpu_torch.parallel import ShardedTensor
 
     if isinstance(data, ShardedTensor):
         return {"dims": tuple(getattr(result, "dims", ())), "shape": tuple(data.shape),
-                "blocks": {repr(c): data.blocks[c].clone() for c in data.mesh.local_coords},
+                "blocks": {repr(c): data.real_block(c).clone() for c in data.mesh.local_coords},
                 "where": {repr(c): [(s.start or 0, n if s.stop is None else s.stop)
                                     for s, n in zip(data.block_index(c), data.shape)]
                           for c in data.mesh.local_coords}}

@@ -92,6 +92,7 @@ def dryrun_multichip(n_shards: int, devices=None) -> None:
     from .grids import cubed_sphere_grid, llc_grid
     from .parallel import (
         ShardedGrid,
+        ShardedTensor,
         make_mesh,
         shard_gridded,
         sharded_apply_many,
@@ -166,6 +167,10 @@ def dryrun_multichip(n_shards: int, devices=None) -> None:
                               boundary="fill")
     check(llc_out, grid_llc.diff(llc_field, "Y", boundary="fill"), 1e-5,
           "LLC-13 dummy-padded diff")
+    # the result stays sharded, its dummy faces the padding of the last block
+    if not isinstance(llc_out.data, ShardedTensor) or llc_out.data.shape[0] != 13:
+        raise AssertionError("LLC-13 dummy-padded diff: the result is not a 13-face "
+                             "ShardedTensor")
 
     # route 5: a batch of ops as one shard program, one shared halo
     # exchange for a diff along X and an interp along Y of one field

@@ -21,7 +21,10 @@ The receiver takes a block's shape and dtype from its own blocks: the
 blocks of one operand all share them, as the shards of a ``shard_map``
 do.  Under the gloo backend, which the caller chose, CUDA blocks are
 staged through host memory (gloo moves no CUDA tensor).
-:data:`TRANSPORT` counts the bytes that crossed.
+:data:`TRANSPORT` counts the bytes that crossed, and under ``peer_bytes``
+the bytes a collective copies from one of the process's own coordinates to
+another (between its cards where the mesh spans several; within a card
+for logical shards).
 
 Each collective adds one to :data:`COLLECTIVES` under its name, in every
 process, which :func:`xgcm_tpu_torch.utils.inspection.count_collectives`
@@ -144,9 +147,16 @@ def fetch(blocks: np.ndarray, mesh: Mesh, needs) -> dict:
             for src, (buf, dev) in received.items()}
 
 
-def _block(blocks, mesh, got, src):
-    """The block at ``src``: this process's own, or the one fetched."""
-    return blocks[src] if mesh.is_local(src) else got[src]
+def _block(blocks, mesh, got, src, dst=None):
+    """The block at ``src``: this process's own, or the one fetched; a
+    block of this process going to another coordinate ``dst`` counts its
+    bytes under ``TRANSPORT["peer_bytes"]``."""
+    if not mesh.is_local(src):
+        return got[src]
+    b = blocks[src]
+    if dst is not None and dst != src:
+        TRANSPORT["peer_bytes"] += b.numel() * b.element_size()
+    return b
 
 
 def _along(c, ax: int, k: int):
@@ -169,7 +179,7 @@ def ppermute(blocks: np.ndarray, mesh: Mesh, axis_name: str, perm) -> np.ndarray
         if src is None:
             out[c] = torch.zeros_like(blocks[c], device=dev)
         elif mesh.is_local(s := _along(c, ax, src)):
-            out[c] = _copy_to(blocks[s], dev)
+            out[c] = _copy_to(_block(blocks, mesh, got, s, c), dev)
         else:
             out[c] = got[s]  # a new tensor, on dev
     return out
@@ -205,8 +215,8 @@ def all_gather(blocks: np.ndarray, mesh: Mesh, axis_name: str, axis: int = 0,
     out = np.empty(blocks.shape, dtype=object)
     for c in mesh.local_coords:
         dev = mesh.devices[c]
-        out[c] = join([_block(blocks, mesh, got, _along(c, ax, k)).to(dev) for k in range(n)],
-                      dim=axis)
+        out[c] = join([_block(blocks, mesh, got, _along(c, ax, k), c).to(dev)
+                       for k in range(n)], dim=axis)
     return out
 
 
@@ -232,7 +242,7 @@ def psum(blocks: np.ndarray, mesh: Mesh, axis_name) -> np.ndarray:
             src = list(c)
             for a, k in zip(axes, ks):
                 src[a] = k
-            parts.append(wrapping(_block(blocks, mesh, got, tuple(src)).to(dev)))
+            parts.append(wrapping(_block(blocks, mesh, got, tuple(src), c).to(dev)))
         dtype = blocks[c].dtype
         out[c] = functools.reduce(torch.add, parts[1:], parts[0].clone()).view(dtype)
     return out
@@ -253,10 +263,27 @@ def shard_map(local: Callable, mesh: Mesh, in_specs: Sequence[PartitionSpec],
     def run(*arrays):
         if len(arrays) != len(in_specs):
             raise ValueError(f"{len(arrays)} operands for {len(in_specs)} in_specs")
-        blocks = [to_sharded(a, mesh, spec).blocks for a, spec in zip(arrays, in_specs)]
-        out = local(*blocks)
+        placed = [to_sharded(a, mesh, spec) for a, spec in zip(arrays, in_specs)]
+        # (block length, global length) of the padded dims, by mesh axis:
+        # an output dim of that block length on that axis keeps the padding
+        padded = {ax: (b, n) for p in placed if p.padded
+                  for ax, b, n in zip(p.spec, first_local(p.blocks).shape, p.shape)
+                  if ax is not None and n % mesh.shape[ax]}
+        out = local(*(p.blocks for p in placed))
+
+        def wrap(o, spec):
+            shape = []
+            for n, ax in zip(first_local(o).shape, spec):
+                if ax is None:
+                    shape.append(n)
+                elif ax in padded and padded[ax][0] == n:
+                    shape.append(padded[ax][1])
+                else:
+                    shape.append(n * mesh.shape[ax])
+            return ShardedTensor(o, mesh, spec, shape=shape)
+
         if single:
-            return ShardedTensor(out, mesh, out_specs)
-        return tuple(ShardedTensor(o, mesh, s) for o, s in zip(out, out_specs))
+            return wrap(out, out_specs)
+        return tuple(wrap(o, s) for o, s in zip(out, out_specs))
 
     return run

@@ -5,7 +5,12 @@ a face-connected grid is split over one mesh axis (a contiguous block of
 ``fpd`` faces a shard, with unconnected dummy faces when the face count
 does not divide the axis, so the 13-face LLC runs on 4 shards), optionally
 with the within-face rows over a second mesh axis and the columns over a
-third: the face x y x x decomposition.  Each op step:
+third: the face x y x x decomposition.  The dummy faces are the padding of
+:class:`~.sharded_tensor.ShardedTensor`'s padded layout: an input placed by
+``ShardedGrid.shard`` is read block by block as it is, and every result
+keeps that layout (13 faces in its shape, the dummy faces never shown), so
+a chain of ops and the arithmetic between their results assemble nothing.
+Each op step:
 
 1. every shard cuts its segments of the four edge strips of each of its
    faces (X-left, X-right, Y-left, Y-right, each ``(w, L)``, offsets
@@ -55,16 +60,17 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.dataarray import GriddedArray, as_tensor
+from ..core.dataarray import GriddedArray
 from ..core.grid import Grid
 from ..core.padding import BOUNDARY_TO_PAD_MODE, _pad_axis
 from ..core.topology import FaceHaloPlan, compile_face_plan
 from ..ops.kernels.face_shift import face_shift
 from ..ops.stencils import cumsum, wrapping
+from ..utils.profiling import span
 from .collectives import all_gather, coords, first_local, map_blocks, psum
 from .halo import _SHARDABLE_WIDTHS, ring_halos, ring_kernel_ok
 from .mesh import Mesh, partition_spec, to_sharded
-from .sharded_tensor import ShardedTensor, _block_index
+from .sharded_tensor import ShardedTensor
 
 __all__ = [
     "FaceHaloPlan",
@@ -190,44 +196,22 @@ class FaceSetup:
 
     def blocks(self, da: GriddedArray, spec) -> np.ndarray:
         """The blocks of ``da`` on the mesh by ``spec``, its face dim
-        rounded up to ``n_padded`` with zero dummy faces.  With no dummy
-        faces this is the plain placement; with them each block is cut
-        from the global array and completed with zeros (one copy)."""
-        if self.n_padded == self.n_faces or self.facedim not in da.dims:
-            return to_sharded(da.data, self.mesh, spec).blocks
-        data = da.data
-        full = (data.full_tensor() if isinstance(data, ShardedTensor)
-                else as_tensor(data, self.mesh.local_device))
-        i = da.get_axis_num(self.facedim)
-        shape = list(full.shape)
-        shape[i] = self.n_padded
-        out = np.empty(self.mesh.devices.shape, dtype=object)
-        for c in coords(self.mesh):
-            index = list(_block_index(spec, self.mesh, shape, c))
-            f0 = index[i].start or 0
-            f1 = self.n_padded if index[i].stop is None else index[i].stop
-            index[i] = slice(min(f0, self.n_faces), min(f1, self.n_faces))
-            real = full[tuple(index)]
-            dev = self.mesh.devices[c]
-            if real.shape[i] == f1 - f0:
-                out[c] = real.to(device=dev, copy=True, memory_format=torch.contiguous_format)
-                continue
-            dummy = list(real.shape)
-            dummy[i] = f1 - f0 - real.shape[i]
-            out[c] = torch.cat([real.to(dev), torch.zeros(dummy, dtype=real.dtype, device=dev)],
-                               dim=i)
-        return out
+        rounded up to ``n_padded`` with dummy faces: the padded layout of
+        :class:`~.sharded_tensor.ShardedTensor`.  An input already placed so
+        (``ShardedGrid.shard``, or a result of this route) gives its blocks
+        as they are; anything else is placed once, the dummy faces zeros."""
+        padded = [da.get_axis_num(self.facedim)] if self.facedim in da.dims else []
+        return to_sharded(da.data, self.mesh, spec, padded=padded).blocks
 
-    def result(self, blocks: np.ndarray, dims, spec) -> torch.Tensor:
-        """The data of a result from its output blocks, the dummy faces
-        dropped: a ShardedTensor when there are none, else the assembled
-        real faces on the mesh's first device (a face dim that does not
-        divide its mesh axis cannot stay sharded: GSPMD's uneven layout
-        has no counterpart here)."""
-        data = ShardedTensor(blocks, self.mesh, spec)
-        if self.n_padded != self.n_faces and self.facedim in dims:
-            data = data.full_tensor().narrow(list(dims).index(self.facedim), 0, self.n_faces)
-        return data
+    def result(self, blocks: np.ndarray, dims, spec) -> ShardedTensor:
+        """The data of a result from its output blocks: a ShardedTensor of
+        the real faces, its dummy faces kept as the padding of the last
+        blocks (no assembly)."""
+        shape = [n * (1 if ax is None else self.mesh.shape[ax])
+                 for n, ax in zip(first_local(blocks).shape, spec)]
+        if self.facedim in dims:
+            shape[list(dims).index(self.facedim)] = self.n_faces
+        return ShardedTensor(blocks, self.mesh, spec, shape=shape)
 
 
 class _Layout(NamedTuple):
@@ -274,6 +258,7 @@ def _layout(blocks, mesh, face_mesh_axis, interior_mesh_axis, interior_mesh_axis
                    fpd, ny_loc, nx_loc)
 
 
+@span("xtt.sharded.strip_pool")
 def _strip_pool(blocks: np.ndarray, lay: _Layout, w: int) -> np.ndarray:
     """The face-global (..., F, 4, w, L) strip pool on every shard: each
     shard's segments of its faces' four edge strips at their tangential
@@ -570,25 +555,26 @@ def _face_shift_blocks(setup: FaceSetup, blocks, partner_blocks, funcname, direc
     out = np.empty(blocks.shape, dtype=object)
     for c in coords(mesh):
         b = blocks[c].contiguous()
-        if axis in rings:
-            lines = rings[axis][0 if direction == "left" else 1]
-            halo = lines[c].squeeze(axis).clone(memory_format=torch.contiguous_format)
-        else:
-            halo = _edge_line(b, axis, direction, mode, fv)
-        p, q = lay.p(c), lay.q(c)
-        if axis_is_x:
-            owner = q == (0 if direction == "left" else lay.Q - 1)
-            seg = slice(p * lay.ny_loc, (p + 1) * lay.ny_loc)
-        else:
-            owner = p == (0 if direction == "left" else lay.P - 1)
-            seg = slice(q * lay.nx_loc, (q + 1) * lay.nx_loc)
-        if owner:
-            pp = None if pool_partner is None else pool_partner[c]
-            for fl in range(lay.fpd):
-                g = lay.face0(c) + fl
-                if setup.plan.connected[g, side]:
-                    strip = halos.strip(pool_self[c], pp, g, side, extend=False)
-                    halo[..., fl, :] = strip[..., 0, seg]
+        with span("xtt.sharded.halo_lines"):
+            if axis in rings:
+                lines = rings[axis][0 if direction == "left" else 1]
+                halo = lines[c].squeeze(axis).clone(memory_format=torch.contiguous_format)
+            else:
+                halo = _edge_line(b, axis, direction, mode, fv)
+            p, q = lay.p(c), lay.q(c)
+            if axis_is_x:
+                owner = q == (0 if direction == "left" else lay.Q - 1)
+                seg = slice(p * lay.ny_loc, (p + 1) * lay.ny_loc)
+            else:
+                owner = p == (0 if direction == "left" else lay.P - 1)
+                seg = slice(q * lay.nx_loc, (q + 1) * lay.nx_loc)
+            if owner:
+                pp = None if pool_partner is None else pool_partner[c]
+                for fl in range(lay.fpd):
+                    g = lay.face0(c) + fl
+                    if setup.plan.connected[g, side]:
+                        strip = halos.strip(pool_self[c], pp, g, side, extend=False)
+                        halo[..., fl, :] = strip[..., 0, seg]
         out[c] = face_shift(b, halo, funcname, direction, axis_is_x)
     return out
 

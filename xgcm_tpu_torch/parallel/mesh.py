@@ -344,11 +344,13 @@ def partition_spec(dims: Sequence[str], dim_to_mesh_axis: Mapping[str, str]) -> 
     return PartitionSpec(*(dim_to_mesh_axis.get(d) for d in dims))
 
 
-def to_sharded(data, mesh: Mesh, spec: Sequence) -> ShardedTensor:
+def to_sharded(data, mesh: Mesh, spec: Sequence, padded: Sequence[int] = ()) -> ShardedTensor:
     """``data`` as a ShardedTensor of ``spec`` on ``mesh``: kept as it is
     when it already is one, re-split (one assembly) when its mesh or spec
     differ, split when it is a plain tensor or host data (host data goes
-    straight to each block's device)."""
+    straight to each block's device).  ``padded`` lists the dims that may
+    take the padded layout where their mesh axis does not divide them (see
+    :mod:`.sharded_tensor`)."""
     spec = tuple(spec)
     if isinstance(data, ShardedTensor):
         if data.mesh == mesh and tuple(data.spec) == spec:
@@ -356,7 +358,7 @@ def to_sharded(data, mesh: Mesh, spec: Sequence) -> ShardedTensor:
         data = data.full_tensor()
     elif not isinstance(data, torch.Tensor):
         data = as_tensor(data, mesh.local_device)
-    return distribute(data, mesh, spec)
+    return distribute(data, mesh, spec, padded=padded)
 
 
 def shard_gridded(
@@ -364,13 +366,16 @@ def shard_gridded(
     mesh: Mesh,
     dim_to_mesh_axis: Mapping[str, str],
     uneven_ok: tuple = (),
+    pad: tuple = (),
 ) -> GriddedArray:
     """Place a GriddedArray onto the mesh, sharding the named dims.
 
     Dims whose size does not divide their mesh axis stay replicated and
     WARN — silent replication would hide a misconfigured mesh.  Name dims
     where uneven replication is intended in ``uneven_ok`` to suppress the
-    warning."""
+    warning.  Dims named in ``pad`` are sharded all the same, in the padded
+    layout (:class:`~.sharded_tensor.ShardedTensor`): ``ShardedGrid.shard``
+    places the face dim of a face-connected grid so."""
     import warnings
 
     sizes = mesh.shape
@@ -380,6 +385,8 @@ def shard_gridded(
             continue
         if garr.sizes[d] % sizes[ax] == 0:
             mapping[d] = ax
+        elif d in pad:
+            mapping[d] = ax
         elif d not in uneven_ok:
             warnings.warn(
                 f"dim {d!r} (size {garr.sizes[d]}) does not divide mesh "
@@ -388,8 +395,9 @@ def shard_gridded(
                 UserWarning,
             )
     spec = partition_spec(garr.dims, mapping)
-    return GriddedArray(to_sharded(garr.data, mesh, spec), garr.dims, name=garr.name,
-                        attrs=garr.attrs)
+    padded = [i for i, d in enumerate(garr.dims) if d in pad]
+    return GriddedArray(to_sharded(garr.data, mesh, spec, padded=padded), garr.dims,
+                        name=garr.name, attrs=garr.attrs)
 
 
 def replicate(garr: GriddedArray, mesh: Mesh) -> GriddedArray:

@@ -54,6 +54,15 @@ def _gathered(x):
     return x
 
 
+def _sharded(blocks, mesh, dims, spec, sizes) -> ShardedTensor:
+    """Per-shard results as a ShardedTensor: a sharded dim named in
+    ``sizes`` (the operands' global sizes by dim name) keeps its size, so
+    that a padded face dim stays padded."""
+    shape = [n if ax is None else sizes.get(d, n * mesh.shape[ax])
+             for d, n, ax in zip(dims, first_local(blocks).shape, spec)]
+    return ShardedTensor(blocks, mesh, spec, shape=shape)
+
+
 class ShardedGrid:
     """Binds a Grid to a Mesh and a dim->mesh-axis mapping.
 
@@ -100,9 +109,14 @@ class ShardedGrid:
         return self.grid.axes
 
     def shard(self, da: GriddedArray) -> GriddedArray:
-        """Place an array on the mesh according to the dim mapping."""
+        """Place an array on the mesh according to the dim mapping.  The face
+        dim of a face-connected grid stays sharded where its mesh axis does
+        not divide it, in the padded layout (the face routes' dummy faces:
+        13 LLC faces over 4 shards are 4 a shard, 3 of them dummy on the
+        last)."""
         mapping = {d: ax for d, ax in self.dim_to_mesh_axis.items() if d in da.dims}
-        return shard_gridded(da, self.mesh, mapping)
+        pad = () if self.grid._face_connections is None else (self.grid._facedim,)
+        return shard_gridded(da, self.mesh, mapping, pad=pad)
 
     def _shift_of(self, da: GriddedArray, axis_name: str, to):
         ax = self.grid.axes[axis_name]
@@ -271,7 +285,8 @@ class ShardedGrid:
         ga = first_local(results)
         data = map_blocks(lambda r: r.data, results, mesh=self.mesh)
         out_spec = partition_spec(ga.dims, self.dim_to_mesh_axis)
-        return GriddedArray(ShardedTensor(data, self.mesh, out_spec), ga.dims, name=ga.name)
+        return GriddedArray(_sharded(data, self.mesh, ga.dims, out_spec, da.sizes), ga.dims,
+                            name=ga.name)
 
     def _fall_through(self, fn, *args, **kwargs):
         """``fn`` on the assembled arrays, its results re-sharded by the
@@ -501,7 +516,9 @@ class ShardedGrid:
             for c in coords(self.mesh):
                 part[c] = results[c][i].data
             spec = partition_spec(ga.dims, self.dim_to_mesh_axis)
-            outs.append(GriddedArray(ShardedTensor(part, self.mesh, spec), ga.dims, name=ga.name))
+            sizes = {d: n for op in operands for d, n in op.sizes.items()}
+            outs.append(GriddedArray(_sharded(part, self.mesh, ga.dims, spec, sizes), ga.dims,
+                                     name=ga.name))
         return outs if multi else outs[0]
 
     def transform(self, da, axis, target, target_data=None, **kwargs):

@@ -6,11 +6,16 @@ holds no storage of its own.  It keeps
 
 * the global shape and dtype, as any tensor does;
 * the mesh and a spec, one mesh-axis name or ``None`` per dim;
-* one block per mesh coordinate, on that coordinate's device: a dim mapped
-  to a mesh axis is split evenly along it, and a mesh axis that maps no dim
-  holds copies.  Blocks are distinct tensors, never views of one another.
-  On a mesh over several processes a process holds the blocks of its own
-  coordinates and ``None`` at the others'.
+* one block per mesh coordinate, on that coordinate's device: a dim of
+  size n mapped to a mesh axis of size k is cut into blocks of
+  ``ceil(n / k)`` along it, and a mesh axis that maps no dim holds copies.
+  Where k does not divide n the layout is padded: the last blocks end in
+  zero padding (13 LLC faces over 4 shards: 4 faces a block, the last one
+  real face and 3 padding faces).  The global shape keeps n, and no op
+  shows the padding: assembly, reductions and every other op that
+  gathers take each block's real part.  Blocks are distinct tensors, never
+  views of one another.  On a mesh over several processes a process holds
+  the blocks of its own coordinates and ``None`` at the others'.
 
 It is a tensor so that a :class:`~xgcm_tpu_torch.GriddedArray` keeps it as
 its data: ``as_tensor`` leaves a tensor as it is, where anything else would
@@ -20,8 +25,11 @@ go through ``np.asarray`` to the host.  Aten ops on it run as follows:
   sharded dims (permute, transpose, unsqueeze, squeeze, reshapes that only
   add or drop dims of size 1, expand, slices and selects of other dims,
   flips, detach, clone, dtype casts) run block by block; a plain operand is
-  sliced to each block along the sharded dims, a sharded one replicated
-  along a dim is sliced likewise;
+  sliced to each block along the sharded dims (and padded with zeros to the
+  block's length on a padded block), a sharded one replicated along a dim
+  is sliced likewise; an integer index into the one sharded dim of a
+  single-process tensor takes the slice from the block that holds it and
+  copies it to the process's first device;
 * any other op assembles the global tensor on the process's first device
   (the blocks of other processes come through the transport of
   :mod:`.collectives`), runs there, and gives back a result sharded by its
@@ -29,9 +37,12 @@ go through ``np.asarray`` to the host.  Aten ops on it run as follows:
   the gather a GSPMD partitioner makes around an op it cannot split.  An in-place op writes
   its result back into the blocks.
 
-Every assembly adds one to :data:`ASSEMBLIES`, never a copy to the host by
-itself: ``np.asarray``, ``.cpu()``, ``.to(device)``, ``.numpy()`` and
-:meth:`ShardedTensor.full_tensor` assemble on purpose.  Autograd records
+Every assembly adds one to :data:`ASSEMBLIES` and runs under the span
+``xtt.sharded.assemble``, never a copy to the host by itself:
+``np.asarray``, ``.cpu()``, ``.to(device)``, ``.numpy()`` and
+:meth:`ShardedTensor.full_tensor` assemble on purpose.  Placing blocks
+runs under ``xtt.sharded.place``, the block-by-block dispatch under
+``xtt.sharded.blockwise``.  Autograd records
 nothing inside ``__torch_dispatch__``; the sharded routes work on blocks
 directly, so a gradient flows from the blocks to what they were cut from.
 """
@@ -44,10 +55,13 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from ..utils.profiling import span
+
 __all__ = [
     "ASSEMBLIES",
     "ShardedTensor",
     "assembly_count",
+    "block_length",
     "distribute",
     "first_local",
     "reset_assembly_count",
@@ -73,18 +87,43 @@ def first_local(blocks: np.ndarray):
     return next(b for b in blocks.flat if b is not None)
 
 
+def block_length(n: int, k: int) -> int:
+    """The length of each block of a dim of size ``n`` over ``k`` shards."""
+    return -(-n // k)
+
+
 def _block_index(spec, mesh, shape, coord) -> Tuple[slice, ...]:
-    """The slices of the global tensor that the block at ``coord`` holds."""
+    """The slices of the global tensor that the block at ``coord`` holds:
+    its real part, shorter than the block where the layout is padded."""
     index = []
     for d, ax in enumerate(spec):
         if ax is None:
             index.append(slice(None))
             continue
-        n = mesh.shape[ax]
-        size = shape[d] // n
+        size = block_length(shape[d], mesh.shape[ax])
         k = coord[mesh.axis_index(ax)]
-        index.append(slice(k * size, (k + 1) * size))
+        index.append(slice(min(k * size, shape[d]), min((k + 1) * size, shape[d])))
     return tuple(index)
+
+
+def _real_part(b: torch.Tensor, spec, mesh, shape, coord) -> torch.Tensor:
+    """Block ``b`` at ``coord`` without its padding (a view)."""
+    for d, s in enumerate(_block_index(spec, mesh, shape, coord)):
+        if spec[d] is not None and s.stop - s.start != b.shape[d]:
+            b = b.narrow(d, 0, s.stop - s.start)
+    return b
+
+
+def _padded_to(t: torch.Tensor, dim: int, length: int) -> torch.Tensor:
+    """``t`` completed with zeros along ``dim`` to ``length`` (``t`` itself
+    when it is that long)."""
+    short = length - t.shape[dim]
+    if short == 0:
+        return t
+    with span("xtt.sharded.place"):
+        pad = list(t.shape)
+        pad[dim] = short
+        return torch.cat([t, t.new_zeros(pad)], dim=dim)
 
 
 def _copy_to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -92,23 +131,36 @@ def _copy_to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.to(device=device, copy=True, memory_format=torch.contiguous_format)
 
 
-def distribute(tensor: torch.Tensor, mesh, spec: Sequence[Optional[str]]) -> "ShardedTensor":
+def distribute(tensor: torch.Tensor, mesh, spec: Sequence[Optional[str]],
+               padded: Sequence[int] = ()) -> "ShardedTensor":
     """Split a plain tensor into a :class:`ShardedTensor` of ``spec`` on
     ``mesh``: each block this process holds a new tensor on its
     coordinate's device (a copy, even where the device is the tensor's
-    own).  In a multi-process job every process passes the same global
-    tensor and cuts its own blocks."""
+    own).  A sharded dim that its mesh axis does not divide raises, unless
+    ``padded`` lists it: it then takes the padded layout (its last blocks
+    completed with zeros).  In a multi-process job every process passes the
+    same global tensor and cuts its own blocks."""
     spec = tuple(spec)
     if len(spec) != tensor.ndim:
         raise ValueError(f"spec {spec} does not match a {tensor.ndim}-d tensor")
-    _check_spec(spec, mesh, tuple(tensor.shape))
+    shape = tuple(tensor.shape)
+    _check_spec(spec, mesh, shape, padded)
+    block = [n if ax is None else block_length(n, mesh.shape[ax]) for n, ax in zip(shape, spec)]
     blocks = np.empty(mesh.devices.shape, dtype=object)
-    for c in mesh.local_coords:
-        blocks[c] = _copy_to(tensor[_block_index(spec, mesh, tensor.shape, c)], mesh.devices[c])
-    return ShardedTensor(blocks, mesh, spec)
+    with span("xtt.sharded.place"):
+        for c in mesh.local_coords:
+            part = tensor[_block_index(spec, mesh, shape, c)]
+            if list(part.shape) == block:
+                blocks[c] = _copy_to(part, mesh.devices[c])
+                continue
+            # a padded block: its real part, then zeros
+            b = part.new_zeros(block, device=mesh.devices[c])
+            b[tuple(slice(0, n) for n in part.shape)].copy_(part)
+            blocks[c] = b
+    return ShardedTensor(blocks, mesh, spec, shape=shape)
 
 
-def _check_spec(spec, mesh, shape) -> None:
+def _check_spec(spec, mesh, shape, padded=()) -> None:
     used = [ax for ax in spec if ax is not None]
     if len(set(used)) != len(used):
         raise ValueError(f"a mesh axis shards more than one dim in {spec}")
@@ -117,7 +169,7 @@ def _check_spec(spec, mesh, shape) -> None:
             continue
         if ax not in mesh.axis_names:
             raise ValueError(f"mesh axis {ax!r} not in mesh {tuple(mesh.axis_names)}")
-        if shape[d] % mesh.shape[ax]:
+        if shape[d] % mesh.shape[ax] and d not in padded:
             raise ValueError(
                 f"dim {d} (size {shape[d]}) does not divide evenly over mesh axis "
                 f"{ax!r} (size {mesh.shape[ax]})"
@@ -128,23 +180,29 @@ class ShardedTensor(torch.Tensor):
     """A global tensor held as blocks on a :class:`~.mesh.Mesh` (see the
     module docstring).  Build one with :func:`distribute`, or from blocks
     with ``ShardedTensor(blocks, mesh, spec)``: ``blocks`` an object array
-    of the mesh's shape (``None`` at the coordinates of other
-    processes)."""
+    of the mesh's shape (``None`` at the coordinates of other processes),
+    and ``shape=`` the global shape where the layout is padded."""
 
     __torch_function__ = torch._C._disabled_torch_function_impl
 
     @staticmethod
-    def __new__(cls, blocks: np.ndarray, mesh, spec: Sequence[Optional[str]]):
+    def __new__(cls, blocks: np.ndarray, mesh, spec: Sequence[Optional[str]],
+                shape: Optional[Sequence[int]] = None):
         spec = tuple(spec)
         if blocks.shape != mesh.devices.shape:
             raise ValueError(f"blocks {blocks.shape} do not match the mesh {mesh.devices.shape}")
         first = blocks[mesh.local_coords[0]]
         if len(spec) != first.ndim:
             raise ValueError(f"spec {spec} does not match {first.ndim}-d blocks")
-        shape = list(first.shape)
-        for d, ax in enumerate(spec):
-            if ax is not None:
-                shape[d] *= mesh.shape[ax]
+        even = [n * (1 if ax is None else mesh.shape[ax]) for n, ax in zip(first.shape, spec)]
+        if shape is None:
+            shape = even
+        shape = [int(n) for n in shape]
+        if len(shape) != len(spec) or any(
+                (n != b) if ax is None else (block_length(n, mesh.shape[ax]) != b)
+                for n, b, ax in zip(shape, first.shape, spec)):
+            raise ValueError(f"global shape {tuple(shape)} does not cut into blocks "
+                             f"{tuple(first.shape)} by spec {spec}")
         for c in mesh.local_coords:
             b = blocks[c]
             if b.shape != first.shape or b.dtype != first.dtype:
@@ -156,6 +214,7 @@ class ShardedTensor(torch.Tensor):
         r._xt_blocks = blocks
         r._xt_mesh = mesh
         r._xt_spec = spec
+        r._xt_padded = shape != even
         return r
 
     @property
@@ -172,16 +231,27 @@ class ShardedTensor(torch.Tensor):
     def spec(self) -> Tuple[Optional[str], ...]:
         return self._xt_spec
 
+    @property
+    def padded(self) -> bool:
+        """True where a sharded dim does not divide its mesh axis: the last
+        blocks end in padding (see the module docstring)."""
+        return self._xt_padded
+
     def block_index(self, coord) -> Tuple[slice, ...]:
         """The slices of the global tensor that the block at ``coord``
-        holds."""
+        holds (its real part, where the layout is padded)."""
         return _block_index(self.spec, self.mesh, self.shape, coord)
+
+    def real_block(self, coord) -> torch.Tensor:
+        """The block at ``coord`` without its padding (a view)."""
+        return _real_part(self.blocks[coord], self.spec, self.mesh, self.shape, coord)
 
     def full_tensor(self) -> torch.Tensor:
         """The global tensor on the process's first device (one assembly;
         in a multi-process job every process makes it)."""
-        ASSEMBLIES["count"] += 1
-        return _assemble(self)
+        with span("xtt.sharded.assemble"):
+            ASSEMBLIES["count"] += 1
+            return _assemble(self)
 
     def __repr__(self, *, tensor_contents=None):
         return (f"ShardedTensor(shape={tuple(self.shape)}, dtype={self.dtype}, spec={self.spec}, "
@@ -243,7 +313,8 @@ def _assemble(x: ShardedTensor) -> torch.Tensor:
     got = fetch(x.blocks, mesh, needs)
     parts = np.empty(tuple(mesh.devices.shape[i] for i in used), dtype=object)
     for k, c in source.items():
-        parts[k] = (x.blocks[c] if mesh.is_local(c) else got[c]).to(dev)
+        b = x.blocks[c] if mesh.is_local(c) else got[c]
+        parts[k] = _real_part(b, spec, mesh, x.shape, c).to(dev)
     if not used:
         # replicated along every mesh axis: one block is the tensor
         return parts[()].to(dev, copy=True)
@@ -271,20 +342,24 @@ def _local_operand(x, coord, out_spec, out_shape, mesh):
     """Operand ``x`` cut to the block of ``coord`` for an op whose result
     has ``out_spec``: a sharded operand's block, sliced along the dims it
     holds whole; a plain tensor sliced along the sharded dims it spans (a
-    dim of size 1 broadcasts) and moved to the block's device."""
+    dim of size 1 broadcasts), completed with zeros to the block's length
+    on a padded block, and moved to the block's device."""
     if isinstance(x, ShardedTensor):
         t, own = x.blocks[coord], x.spec
     else:
         t, own = x, (None,) * x.ndim
     off = len(out_shape) - t.ndim
+    dev = mesh.devices[coord]
     for d, ax in enumerate(out_spec):
         xd = d - off
         if ax is None or xd < 0 or own[xd] is not None or t.shape[xd] == 1:
             continue
         n = mesh.shape[ax]
-        size = out_shape[d] // n
-        t = t.narrow(xd, coord[mesh.axis_index(ax)] * size, size)
-    dev = mesh.devices[coord]
+        size = block_length(out_shape[d], n)
+        start = min(coord[mesh.axis_index(ax)] * size, out_shape[d])
+        t = t.narrow(xd, start, min(size, out_shape[d] - start))
+        if t.shape[xd] != size:
+            t = _padded_to(t.to(dev), xd, size)
     # a 0-d tensor joins any device's op as a scalar
     return t.to(dev) if t.device != dev and t.ndim else t
 
@@ -322,36 +397,44 @@ def _pointwise(func, args, kwargs):
                 or tuple(target.shape) != out_shape:
             return NotImplemented
     results = np.empty(mesh.devices.shape, dtype=object)
-    for c in mesh.local_coords:
-        local = [_local_operand(x, c, out_spec, out_shape, mesh)
-                 if isinstance(x, torch.Tensor) else x for x in flat]
-        a, k = tree_unflatten(local, tree)
-        results[c] = func(*a, **k)
+    with span("xtt.sharded.blockwise"):
+        for c in mesh.local_coords:
+            local = [_local_operand(x, c, out_spec, out_shape, mesh)
+                     if isinstance(x, torch.Tensor) else x for x in flat]
+            a, k = tree_unflatten(local, tree)
+            results[c] = func(*a, **k)
     if inplace:
         return args[0]
-    return _wrap_results(results, mesh, tuple(out_spec))
+    return _wrap_results(results, mesh, tuple(out_spec), out_shape)
 
 
-def _wrap_results(results, mesh, spec):
+def _wrap_results(results, mesh, spec, shape):
     first = first_local(results)
     if isinstance(first, torch.Tensor):
-        return ShardedTensor(results, mesh, spec)
+        return ShardedTensor(results, mesh, spec, shape=shape)
     # a tuple of tensors, one ShardedTensor each
     outs = []
     for i in range(len(first)):
         part = np.empty(results.shape, dtype=object)
         for c in mesh.local_coords:
             part[c] = results[c][i]
-        outs.append(ShardedTensor(part, mesh, spec))
+        outs.append(ShardedTensor(part, mesh, spec, shape=shape))
     return tuple(outs)
 
 
 # --------------------------------------------------------------- view ops
 def _blockwise(x: ShardedTensor, spec, fn):
+    """``fn`` on every block: a ShardedTensor of ``spec``.  The view ops
+    keep each sharded dim whole, so a sharded dim of the result has the
+    global length of ``x``'s dim on the same mesh axis (its padding
+    included)."""
     blocks = np.empty(x.blocks.shape, dtype=object)
-    for c in x.mesh.local_coords:
-        blocks[c] = fn(x.blocks[c])
-    return ShardedTensor(blocks, x.mesh, spec)
+    with span("xtt.sharded.blockwise"):
+        for c in x.mesh.local_coords:
+            blocks[c] = fn(x.blocks[c])
+    length = {ax: n for ax, n in zip(x.spec, x.shape) if ax is not None}
+    shape = [n if ax is None else length[ax] for n, ax in zip(first_local(blocks).shape, spec)]
+    return ShardedTensor(blocks, x.mesh, spec, shape=shape)
 
 
 def _same_spec(func, args, kwargs):
@@ -424,7 +507,7 @@ def _reshape(func, args, kwargs):
         ax = x.spec[od]
         spec[nd] = ax
         if ax is not None:
-            local[nd] = s // x.mesh.shape[ax]
+            local[nd] = block_length(s, x.mesh.shape[ax])
     return _blockwise(x, spec, lambda b: b.reshape(local))
 
 
@@ -459,9 +542,25 @@ def _slice(func, args, kwargs):
 def _select(func, args, kwargs):
     x, dim = args[0], args[1] % args[0].ndim
     if x.spec[dim] is not None:
-        return NotImplemented
+        return _select_sharded(x, dim, args[2])
     spec = [ax for d, ax in enumerate(x.spec) if d != dim]
     return _blockwise(x, spec, lambda b: func(b, *args[1:]))
+
+
+def _select_sharded(x: ShardedTensor, dim: int, index: int):
+    """``x.select(dim, index)`` along its one sharded dim in a single
+    process: the slice of the block that holds ``index``, copied to the
+    process's first device (no assembly).  Anything else assembles."""
+    ax = x.spec[dim]
+    n = x.shape[dim]
+    if x.mesh.multiprocess or any(a is not None for d, a in enumerate(x.spec) if d != dim) \
+            or not -n <= index < n:
+        return NotImplemented
+    index %= n
+    size = block_length(n, x.mesh.shape[ax])
+    i = x.mesh.axis_index(ax)
+    owner = next(c for c in x.mesh.local_coords if c[i] == index // size)
+    return x.blocks[owner].select(dim, index % size).to(x.mesh.local_device)
 
 
 def _flip(func, args, kwargs):
@@ -509,7 +608,7 @@ def _gathered(func, args, kwargs):
     if target is not None and _is_inplace(func):
         whole = full[id(target)]
         for c in target.mesh.local_coords:
-            target.blocks[c].copy_(whole[_block_index(target.spec, target.mesh, target.shape, c)])
+            target.real_block(c).copy_(whole[target.block_index(c)])
         return target
 
     if "out" in kwargs:
@@ -521,6 +620,6 @@ def _gathered(func, args, kwargs):
             return t
         if any(ax is not None and t.shape[d] != ref.shape[d] for d, ax in enumerate(ref.spec)):
             return t
-        return distribute(t, ref.mesh, ref.spec)
+        return distribute(t, ref.mesh, ref.spec, padded=range(ref.ndim))
 
     return tree_map(reshard, out)
