@@ -133,6 +133,8 @@ KERNELS = {
         "xgcm_tpu_torch/csrc/conservative.cu", "xgcm_tpu/ops/pallas_transform.py:873"),
     "vorticity": ("xgcm_tpu_torch/csrc/vorticity.cu", "xgcm_tpu/ops/pallas_stencils.py:111"),
     "face_shift": ("xgcm_tpu_torch/csrc/face_shift.cu", "xgcm_tpu/ops/pallas_stencils.py:415"),
+    # Grid.integrate's product, nan_to_num and sum, which XLA fuses
+    "weighted_sum": ("xgcm_tpu_torch/csrc/weighted_sum.cu", "none"),
 }
 
 
@@ -1540,6 +1542,32 @@ def calculus_calls(grid, theta):
 SUMS = ("integrate X,Y", "average X,Y", "integrate Z")
 
 
+def check_budget_sums(check, grid, tendency):
+    """The weighted sums of the budget's closure on the card: the kernel
+    against its plain version on the tendency and the grid's factors of the
+    volume (float32, the route ``Grid.integrate`` takes), within 1e-6
+    relative, for the tendency and its magnitude.  Returns (kernel call,
+    plain call, bound) of the whole-volume sum for timing."""
+    from xgcm_tpu_torch.core.grid import _fused_factors
+    from xgcm_tpu_torch.ops.kernels.weighted_sum import weighted_sum, weighted_sum_plain
+
+    axes = ["X", "Y", "Z"]
+    metric, interpolated = grid._find_metric(tendency, axes)
+    dims = grid._get_dims_from_axis(tendency, axes)
+    factors = _fused_factors(tendency, metric, interpolated, dims, {})
+    if factors is None:
+        raise AssertionError("the budget's integrals do not take the weighted-sum kernel")
+    x, n = tendency.data, len(dims)
+    for label, data in (("tendency", x), ("|tendency|", x.abs())):
+        got, want = weighted_sum(data, factors, n), weighted_sum_plain(data, factors, n)
+        check.compare("weighted_sum", f"budget {label}", got.reshape(1), want.reshape(1),
+                      rtol=1e-6)
+        del data
+    nbytes = (x.numel() + sum(f.numel() for f in factors)) * 4
+    return (lambda: weighted_sum(x, factors, n), lambda: weighted_sum_plain(x, factors, n),
+            bound(nbytes, (len(factors) + 1) * x.numel()))
+
+
 def check_metric_small(gen, dev, xtt):
     """The budget and the calculus on a small grid on the card against the
     same calls on the CPU: the shifts, products and prefix sums value for
@@ -1658,12 +1686,16 @@ def budget_breakdown(fn, reps=3):
     return (wall, split) if split else None
 
 
-def metric_phase(xtt, build, gen, dev, card, nz=NZ, ny=NY, nx=NX):
+def metric_phase(xtt, build, gen, dev, card, report, nz=NZ, ny=NY, nx=NX):
     """Phase 9: the tracer budget of examples/tracer_budget.py and the
     metric-weighted calculus on a MITgcm C-grid, at one LLC4320 face of nz
-    levels, with the launch counts of kernel A their routes imply, the
-    card against the CPU at a small size, the identities at full width,
-    their times, peak memory and the profiler's split of the budget."""
+    levels, with the launch counts of kernel A and the weighted sum their
+    routes imply, the weighted sum against its plain version, the card
+    against the CPU at a small size, the identities at full width, their
+    times, peak memory and the profiler's split of the budget.  The weighted
+    sum's row of the kernel report goes into ``report``: (check, launches,
+    times, bounds)."""
+    check, launches, times, bounds = report
     # (a) the tracer budget; about 9 fields of nz x ny x nx f32 are live
     # at its peak (the four inputs, three fluxes, two temporaries)
     grid = budget_grid(xtt, nx, ny, nz)
@@ -1686,9 +1718,11 @@ def metric_phase(xtt, build, gen, dev, card, nz=NZ, ny=NY, nx=NX):
         f"call {first_ms:.1f} ms (host clock, with the metrics' one copy to the card); peak "
         f"device memory {peak:.2f} GB with the inputs, above the {base / 1e9:.2f} GB that "
         f"earlier phases hold")
-    if counts["shift"] != 6 or counts["face_shift"] != 0:
-        raise AssertionError(f"the budget launched shift {counts['shift']} and face_shift "
-                             f"{counts['face_shift']} times, expected 6 and 0")
+    if counts["shift"] != 6 or counts["face_shift"] != 0 or counts["weighted_sum"] != 2:
+        raise AssertionError(f"the budget launched shift {counts['shift']}, face_shift "
+                             f"{counts['face_shift']} and weighted_sum "
+                             f"{counts['weighted_sum']} times, expected 6, 0 and 2")
+    launches["weighted_sum"] = counts["weighted_sum"]
     if not closure < 1e-4:
         raise AssertionError(f"the budget does not close: {closure:.3e}")
     for name, r in (("div", div), ("tendency", tendency)):
@@ -1696,7 +1730,13 @@ def metric_phase(xtt, build, gen, dev, card, nz=NZ, ny=NY, nx=NX):
             raise AssertionError(f"budget {name}: {r.dims} {r.dtype}")
     if not bool(torch.isfinite(tendency.data).all()):
         raise AssertionError("budget: non-finite tendency")
-    del div, vol, tendency
+    kernel_fn, plain_fn, bounds["weighted_sum"] = check_budget_sums(check, grid, tendency)
+    times["weighted_sum"] = time_pair(kernel_fn, plain_fn, reps=3)
+    log(f"time weighted_sum ({nz}, {ny}, {nx}) f32, the budget's whole-volume integral: kernel "
+        f"{times['weighted_sum'][0]:.4f} ms, plain {times['weighted_sum'][1]:.4f} ms, bound "
+        f"{bounds['weighted_sum'][0]:.4f} ms ({bounds['weighted_sum'][1]}); within 1e-6 of the "
+        f"plain version (max abs err {check.max_err['weighted_sum']:.3e}) [{card}]")
+    del div, vol, tendency, kernel_fn, plain_fn
 
     def budget():
         return budget_closure(grid, budget_terms(grid, theta, u, v, w)[2])
@@ -3553,7 +3593,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 9: the metric path at one LLC4320 face -------------------
-    metric_phase(xtt, build, gen, dev, card)
+    metric_phase(xtt, build, gen, dev, card, (check, launches, times, bounds))
 
     # ---- phase 10: the xarray path at one LLC4320 face ------------------
     torch.cuda.synchronize()

@@ -58,6 +58,7 @@ from xgcm_tpu_torch.ops.kernels.interp_linear import (
 from xgcm_tpu_torch.ops.kernels.face_shift import face_shift, face_shift_plain
 from xgcm_tpu_torch.ops.kernels.shift import shift, shift_plain
 from xgcm_tpu_torch.ops.kernels.vorticity import vorticity, vorticity_plain
+from xgcm_tpu_torch.ops.kernels import weighted_sum as kw
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -126,6 +127,8 @@ def test_wrappers_take_plain_version_on_cpu(no_library):
     assert torch.equal(face_shift(x4, h, "max", "right", False),
                        face_shift_plain(x4, h, "max", "right", False))
     assert torch.equal(vorticity(u, v, ix, iy), vorticity_plain(u, v, ix, iy))
+    fs = [torch.as_tensor(rng.rand(1, 5, 1)), torch.as_tensor(rng.rand(1, 1, 5))]
+    assert torch.equal(kw.weighted_sum(x4[0], fs, 2), kw.weighted_sum_plain(x4[0], fs, 2))
     # the step on CPU tensors runs end to end without the library
     step(u.float(), v.float(), torch.sort(torch.rand(4, 6, 3), -1).values,
          torch.linspace(0.2, 0.8, 3))
@@ -153,6 +156,8 @@ def test_wrappers_raise_off_cpu_without_cuda():
         face_shift(x, torch.empty((4,), device="meta"), "diff", "left", True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         vorticity(x, x, torch.empty(6, device="meta"), torch.empty(4, device="meta"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        kw.weighted_sum(x, [torch.empty((1, 6), device="meta")], 1)
 
 
 def test_outputs_are_checked():
@@ -1034,6 +1039,27 @@ def test_tracer_budget_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_budget_sums_on_card_match_plain(cuda):
+    """chip_smoke's phase 9 closure on a 12 x 40 x 72 grid: two launches
+    of the weighted sum, the budget closes, and the kernel's sums of the
+    tendency and its magnitude equal its plain version within 1e-6."""
+    nz, ny, nx = chip_smoke.METRIC_SMALL
+    g = torch.Generator(device=cuda).manual_seed(37)
+    ins = chip_smoke.budget_inputs(xtt, g, cuda, nz, ny, nx)
+    grid = chip_smoke.budget_grid(xtt, nx, ny, nz)
+    tendency = chip_smoke.budget_terms(grid, *ins)[2]
+    build.reset_launch_counts()
+    assert chip_smoke.budget_closure(grid, tendency) < 1e-4
+    assert build.launch_counts()["weighted_sum"] == 2
+    check = chip_smoke.Checker()
+    kernel_fn, plain_fn, (bound_ms, bound_by) = chip_smoke.check_budget_sums(
+        check, grid, tendency)
+    assert torch.equal(kernel_fn().view(torch.int32), kernel_fn().view(torch.int32))
+    assert_close(kernel_fn().cpu(), plain_fn().cpu(), rtol=1e-6)
+    assert bound_by == "bytes" and bound_ms > 0
+
+
+@pytest.mark.cuda
 def test_xarray_path_on_card_matches_native(cuda):
     """chip_smoke's phase 10 on a 12 x 40 x 72 grid: xarray diffs,
     derivative and integrate through Grid(xr.Dataset), and linear and
@@ -1050,3 +1076,213 @@ def test_xarray_path_on_card_matches_native(cuda):
                                                         ny, nx)
     assert "xarray" not in sys.modules or sys.modules["xarray"].__name__ != "fake_xarray"
     chip_smoke.check_regrid_small(xtt, q, tr, levels, cuda)
+
+
+# -- the weighted sum of Grid.integrate ----------------------------------------------
+
+
+def test_weighted_sum_plan_covers_each_row_once():
+    """The launch of the tracer budget's integrals (90 levels of a 4320^2
+    face) and of odd shapes: every vector of a row has one thread, blocks
+    fit a launch, and the plan depends on the shape alone."""
+    p = kw.plan((90, 4320, 4320), 3, 4)
+    assert p == kw.Plan(segments=1, rows=90 * 4320, vw=4, tiles=1, vpt=5, chunk_rows=24,
+                        chunks=16200)
+    for shape, ndims, vw in [((90, 4320, 4320), 1, 4), ((90, 4320, 4320), 2, 4), ((7,), 1, 1),
+                             ((3, 5, 4321), 3, 1), ((2, 100_000), 1, 4), ((5, 1), 1, 1)]:
+        p = kw.plan(shape, ndims, vw)
+        nv = shape[-1] // vw
+        width = kw.THREADS * p.vpt
+        assert p.vpt <= kw.MAX_VECTORS and (p.tiles - 1) * width < nv <= p.tiles * width
+        assert (p.chunks - 1) * p.chunk_rows < p.rows <= p.chunks * p.chunk_rows
+        assert p.segments * p.rows * shape[-1] == int(np.prod(shape))
+        assert p.segments * p.chunks * p.tiles < 2**31
+        assert kw.plan(shape, ndims, vw) == p
+
+
+def _weighted_sum_inputs(cuda, shape, factor_dims, ndims, offset=0, seed=0, extremes=True):
+    """x of positive values (a temperature-like field, so that float32 sums
+    are well conditioned) with NaN in places and, with ``extremes``, +inf
+    in the first segment, -inf in the last and a finite value whose
+    product overflows in the middle one; factors over factor_dims of x's
+    dims, each in [1.05, 1.15)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    numel = int(np.prod(shape))
+    flat = torch.rand((numel + 4,), generator=g, device=cuda).add_(20.0)
+    x = flat[offset:offset + numel].view(shape)
+    x.view(-1)[3::97] = float("nan")
+    segments = int(np.prod(shape[:len(shape) - ndims]))
+    per = numel // segments
+    if extremes:
+        x.view(-1)[1] = float("inf")
+    if extremes and segments >= 2:
+        x.view(-1)[numel - 2] = float("-inf")
+    if extremes and segments >= 3:
+        x.view(-1)[(segments // 2) * per + 5] = torch.finfo(torch.float32).max
+    factors = []
+    for dims in factor_dims:
+        fshape = [n if d in dims else 1 for d, n in enumerate(shape)]
+        factors.append(torch.rand(fshape, generator=g, device=cuda).mul_(0.1).add_(1.05))
+    return x, factors
+
+
+def _check_weighted_sum(x, factors, ndims):
+    """One launch a call; two calls equal to the bit; within rtol 1e-6 of
+    the plain path's weighted values summed in float64, and of the plain
+    float32 path within the JAX tests' tolerance, with its NaN footprint."""
+    build.reset_launch_counts()
+    got = kw.weighted_sum(x, factors, ndims)
+    assert build.launch_counts()["weighted_sum"] == 1
+    assert sum(build.launch_counts().values()) == 1
+    again = kw.weighted_sum(x, factors, ndims)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    metric = factors[0]
+    for f in factors[1:]:
+        metric = metric * f
+    w = torch.nan_to_num(x * metric, nan=0.0)
+    dims = tuple(range(x.ndim - ndims, x.ndim))
+    assert got.shape == x.shape[:x.ndim - ndims] and got.dtype == torch.float32
+    assert torch.allclose(got.double(), w.sum(dims, dtype=torch.float64), rtol=1e-6, atol=0)
+    assert_close(got.cpu(), w.sum(dims).cpu(), rtol=1e-6)
+    return got
+
+
+# (shape, the dims of each factor, trailing dims summed, storage offset)
+WEIGHTED_SUM_CASES = [
+    ((4320,), [(0,)], 1, 0),
+    ((7,), [(0,)], 1, 0),
+    ((12, 4320), [(1,), (0,)], 1, 0),
+    ((12, 4320), [(0,), (1,)], 2, 0),
+    ((3, 5, 4321), [(2,), (1,), (0,)], 3, 0),
+    ((3, 5, 4321), [(0,), (2,), (1,)], 1, 0),
+    ((3, 5, 7), [(1,), (2,), (0,)], 2, 0),
+    ((3, 5, 4320), [(2,), (1,), (0,)], 3, 1),  # a misaligned view: the scalar route
+    ((3, 5, 4320), [(1,), (0,), (2,)], 2, 1),
+    # a time dim the metric lacks
+    ((4, 3, 5, 4320), [(3,), (2,), (1,)], 3, 0),
+    ((4, 3, 5, 4320), [(2,), (3,)], 2, 0),
+    # a registered full-size metric, and one over the horizontal dims
+    ((4, 3, 5, 4320), [(1, 2, 3)], 3, 0),
+    ((4, 3, 5, 4320), [(1, 2, 3)], 1, 0),
+    ((4, 3, 5, 4320), [(2, 3), (1,)], 2, 0),
+    ((4, 3, 5, 4321), [(2, 3), (1,)], 3, 0),
+    # a row longer than a block's tile
+    ((3, 20000), [(1,), (0,)], 1, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, factor_dims, ndims, offset", WEIGHTED_SUM_CASES)
+def test_weighted_sum_kernel_matches_plain(cuda, shape, factor_dims, ndims, offset):
+    for extremes in (False, True):
+        x, factors = _weighted_sum_inputs(cuda, shape, factor_dims, ndims, offset,
+                                          extremes=extremes)
+        assert (x.data_ptr() % 16 != 0) == bool(offset)
+        _check_weighted_sum(x, factors, ndims)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndims", [1, 2, 3])
+@pytest.mark.parametrize("order", list(itertools.permutations([(0,), (1,), (2,)])))
+def test_weighted_sum_kernel_in_each_factor_order(cuda, order, ndims):
+    """The metric's factors in each of the six orders that frozenset
+    iteration can give: the sums match, and a field with one nonzero value
+    a row gives each row's weighted value bit for bit, so the kernel
+    rounds the product in the order it was given."""
+    for extremes in (False, True):
+        x, factors = _weighted_sum_inputs(cuda, (6, 40, 4320), order, ndims, seed=5,
+                                          extremes=extremes)
+        _check_weighted_sum(x, factors, ndims)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    factors = [torch.rand(f.shape, generator=g, device=cuda).add_(0.5) for f in factors]
+    sparse = torch.zeros((6, 40, 4320), device=cuda)
+    rows = torch.arange(6 * 40, device=cuda)
+    sparse.view(-1, 4320)[rows, (rows * 37) % 4320] = torch.rand(
+        (6 * 40,), generator=g, device=cuda).add_(0.5)
+    metric = factors[0] * factors[1] * factors[2]
+    want = (sparse * metric).sum(-1)
+    got = kw.weighted_sum(sparse, factors, 1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_weighted_sum_kernel_refuses_a_gradient():
+    """The kernel computes no gradient, and Grid.integrate sends no tensor
+    that needs one: off the CPU such a call raises before any launch."""
+    def meta(shape, grad):
+        return torch.empty(shape, device="meta", requires_grad=grad)
+
+    for x_grad, f_grad in ((True, False), (False, True)):
+        with pytest.raises(ValueError, match="no gradient"):
+            kw.weighted_sum(meta((4, 6), x_grad), [meta((1, 6), f_grad)], 1)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="CUDA"):
+        kw.weighted_sum(meta((4, 6), True), [meta((1, 6), False)], 1)
+
+
+# Grid.integrate's route: the label, and the launches of the weighted sum on
+# the card; each case of no launch differs from one of a launch in one respect
+INTEGRATE_ROUTES = {
+    "X": 1, "X, Y": 1, "Y, X": 1, "X, Y, Z": 1, "a registered area": 1,
+    "Z": 0, "X, Z": 0, "float64 data": 0, "integer data": 0, "keepdims": 0, "dtype": 0,
+    "a gradient": 0, "an interpolated metric": 0, "a float64 metric": 0,
+    "a view that is not contiguous": 0, "a ShardedTensor": 0,
+}
+
+
+def _integrate_route_case(label, theta):
+    """(integrate, data, axes, keywords) of a route case on the tracer
+    budget's grid (float32 metrics dx, dy, dz at both positions), with
+    ``theta`` (Z, Y, X at the centres) on the device the case runs on."""
+    nz, ny, nx = theta.shape
+    grid = chip_smoke.budget_grid(xtt, nx, ny, nz)
+    da = xtt.GriddedArray(theta, ("zc", "yc", "xc"), name="theta")
+    if label in ("a registered area", "an interpolated metric", "a float64 metric"):
+        area = grid.get_metric(xtt.GriddedArray(torch.zeros((ny, nx)), ("yc", "xc")),
+                               ("X", "Y"))
+        if label == "a float64 metric":
+            area = area.astype(torch.float64)
+        grid._metrics[frozenset(("X", "Y"))] = [area]
+        if label == "an interpolated metric":  # the area lies on xc, the data on xg
+            da = xtt.GriddedArray(theta, ("zc", "yc", "xg"), name="theta")
+        return grid.integrate, da, ("X", "Y"), {}
+    if label == "a ShardedTensor":
+        mesh = par.make_mesh({"x": 2}, devices=[theta.device] * 2)
+        sgrid = par.ShardedGrid(grid, mesh, {"xc": "x"})
+        return sgrid.integrate, sgrid.shard(da), ("X", "Y"), {}
+    axes = {"X": ["X"], "X, Y": ["X", "Y"], "Y, X": ["Y", "X"], "X, Y, Z": ["X", "Y", "Z"],
+            "Z": ["Z"], "X, Z": ["X", "Z"]}.get(label, ["X", "Y"])
+    da = {
+        "float64 data": da.astype(torch.float64),
+        "integer data": da.with_data((theta * 100).nan_to_num().int()),
+        "a gradient": da.with_data(theta.clone().requires_grad_(True)),
+        "a view that is not contiguous": da.transpose("zc", "xc", "yc"),
+    }.get(label, da)
+    kwargs = {"keepdims": {"keepdims": False}, "dtype": {"dtype": np.float32}}.get(label, {})
+    return grid.integrate, da, axes, kwargs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(INTEGRATE_ROUTES))
+def test_integrate_on_card_takes_one_launch(cuda, label):
+    """Grid.integrate of float32 data on the tracer budget's grid: one
+    launch of the weighted sum for X, (X, Y) and the whole volume, with the
+    values of the same calls on the CPU within the JAX tests' tolerance;
+    none where the route stays in PyTorch (a leading dim, other dtypes, a
+    keyword to the sum, a gradient, an interpolated or float64 metric, a
+    view that is not contiguous, a ShardedTensor), equal to the CPU there
+    too."""
+    nz, ny, nx = 6, 40, 4320
+    g = torch.Generator(device=cuda).manual_seed(31)
+    theta = torch.rand((nz, ny, nx), generator=g, device=cuda).add_(20.0)
+    theta[2, 3, 4] = float("nan")
+    out = {}
+    for where, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        integrate, da, axes, kwargs = _integrate_route_case(label, theta.to(dev))
+        build.reset_launch_counts()
+        out[where] = integrate(da, axes, **kwargs)
+        assert build.launch_counts()["weighted_sum"] == (
+            INTEGRATE_ROUTES[label] if where == "card" else 0)
+    a, b = out["card"], out["cpu"]
+    assert a.dims == b.dims and a.dtype == b.dtype and a.name == "theta"
+    assert a.data.device.type == "cuda"
+    assert_close(a.data.detach().cpu(), b.data.detach(), rtol=1e-6)

@@ -21,6 +21,7 @@ import torch
 
 import xgcm_tpu
 import xgcm_tpu_torch as xtt
+from xgcm_tpu_torch.core import grid as grid_module
 from tests.datasets import datasets_grid_metric
 from tests.torch_parity import assert_bitwise, assert_close
 
@@ -31,10 +32,17 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 RTOL = {np.dtype(np.float64): 1e-7, np.dtype(np.float32): 1e-6}
 
 
-def _grids(grid_type, metrics=None, nonfinite=True):
+def _grids(grid_type, metrics=None, nonfinite=True, float32=False):
     """(ds_j, grid_j, ds_t, grid_t) of datasets_grid_metric(grid_type),
-    the data variables sprinkled with NaN and +-inf."""
+    the data variables sprinkled with NaN and +-inf; with ``float32`` its
+    float64 data and metrics in float32."""
     ds_j, coords, all_metrics = datasets_grid_metric(grid_type)
+    if float32:
+        def f32(vs):
+            return {k: (v.dims, np.asarray(v.data, np.float32)) for k, v in vs.items()
+                    if np.asarray(v.data).dtype == np.float64}
+
+        ds_j = ds_j.assign_coords(**f32(ds_j.coords)).assign(**f32(ds_j.data_vars))
     if nonfinite:
         # +inf and -inf in different time slices: integrate takes them as
         # the largest finite values, and a sum holding both cancels them in
@@ -175,6 +183,135 @@ def test_interp_like(var, like, boundary):
     r_j = g_j.interp_like(ds_j[var], ds_j[like], boundary=boundary, fill_value=1.5)
     r_t = g_t.interp_like(ds_t[var], ds_t[like], boundary=boundary, fill_value=1.5)
     _same(r_t, r_j)
+
+
+# -- the metric's factors and the routes of integrate -------------------------------
+
+# 1-D metrics only: every metric of more than one axis is a product
+ONE_AXIS = {("X",): ["dx_t", "dx_e", "dx_n", "dx_ne"], ("Y",): ["dy_t", "dy_e", "dy_n", "dy_ne"],
+            ("Z",): ["dz_t", "dz_w"]}
+INTEGRATE_AXES = [("X",), ("Y",), ("X", "Y"), ("X", "Y", "Z"), "Z"]
+
+
+@pytest.mark.parametrize("metrics", ["registered", "products"])
+@pytest.mark.parametrize("grid_type", ["B", "C"])
+@pytest.mark.parametrize("axes", INTEGRATE_AXES)
+def test_found_factors_make_get_metric(grid_type, axes, metrics):
+    """What _find_metric resolves, multiplied by _metric_product where it
+    is a tuple of factors, is get_metric's result: the same values bit for
+    bit, dims, dtype and strides, and the same warnings."""
+    from xgcm_tpu_torch.core.grid import _metric_product
+
+    _, _, ds_t, g_t = _grids(grid_type, metrics=None if metrics == "registered" else ONE_AXIS,
+                             nonfinite=False)
+    for var in ("tracer", "u", "wt"):
+        (found, interpolated), w_found = _warned(lambda: g_t._find_metric(ds_t[var], axes))
+        want, w_want = _warned(lambda: g_t.get_metric(ds_t[var], axes))
+        got = found if isinstance(found, xtt.GriddedArray) else _metric_product(found, ds_t[var])
+        assert w_found == w_want and interpolated == bool(w_want)
+        assert got.dims == want.dims and got.dtype == want.dtype
+        assert got.data.stride() == want.data.stride()
+        assert_bitwise(got, want)
+
+
+# (label, registered metrics, array, axes): the conditions that interpolate
+INTERPOLATING = [("2: volume at u", None, "u", ("X", "Y", "Z")),
+                 ("4: product interpolated", {("X",): ["dx_t"], ("Z",): ["dz_t"]}, "u",
+                  ("X", "Z"))]
+
+
+@pytest.mark.parametrize("label, metrics, var, axes", INTERPOLATING,
+                         ids=[c[0] for c in INTERPOLATING])
+def test_integrate_warns_once_a_call(label, metrics, var, axes):
+    ds_j, g_j, ds_t, g_t = _grids("C", metrics=metrics)
+    for _ in range(2):
+        r_j, w_j = _warned(lambda: g_j.integrate(ds_j[var], axes))
+        r_t, w_t = _warned(lambda: g_t.integrate(ds_t[var], axes))
+        assert len(w_t) == 1 and w_t == w_j
+        _same(r_t, r_j, exact=False)
+
+
+def _float32_grid(metrics=None):
+    """The port's float32 C grid and its dataset."""
+    _, _, ds_t, g_t = _grids("C", metrics=metrics, nonfinite=False, float32=True)
+    return g_t, ds_t
+
+
+def _route(grid, da, axes, **kwargs):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        metric, interpolated = grid._find_metric(da, axes)
+    return grid_module._fused_factors(da, metric, interpolated,
+                                      grid._get_dims_from_axis(da, axes), kwargs)
+
+
+def _route_case(label):
+    """(grid, array, axes, keywords) of a route case on the float32 C grid."""
+    grid, ds = _float32_grid()
+    tracer = ds["tracer"]  # (time, zt, yt, xt)
+    if label.startswith("axes "):
+        return grid, tracer, tuple(label[5:].split(",")), {}
+    if label == "a registered area":
+        return _float32_grid({("X", "Y"): ["area_t"]})[0], tracer, ("X", "Y"), {}
+    if label == "a ShardedTensor":
+        from xgcm_tpu_torch import parallel as par
+
+        mesh = par.make_mesh({"x": 2}, devices=[tracer.data.device] * 2)
+        sharded = par.ShardedGrid(grid, mesh, {"xt": "x"}).shard(tracer)
+        assert type(sharded.data) is not torch.Tensor
+        return grid, sharded, ("X", "Y"), {}
+    if label == "a float64 metric":
+        area64, _ = _float32_grid({("X", "Y"): ["area_t"]})
+        area64._metrics[frozenset(("X", "Y"))] = [ds["area_t"].astype(torch.float64)]
+        return area64, tracer, ("X", "Y"), {}
+    if label == "an interpolated metric":
+        return _float32_grid({("X", "Y"): ["area_t"]})[0], ds["u"], ("X", "Y"), {}
+    return {
+        "float64 data": (grid, tracer.astype(torch.float64), ("X", "Y"), {}),
+        "integer data": (grid, tracer.astype(torch.int32), ("X", "Y"), {}),
+        "keepdims": (grid, tracer, ("X", "Y"), {"keepdims": False}),
+        "dtype": (grid, tracer, ("X", "Y"), {"dtype": np.float32}),
+        "a leading dim": (grid, tracer, "Z", {}),
+        "leading and trailing dims": (grid, tracer, ("X", "Z"), {}),
+        "a gradient": (grid, tracer.with_data(tracer.data.clone().requires_grad_(True)),
+                       ("X", "Y"), {}),
+        "a view that is not contiguous": (grid, tracer.transpose("time", "zt", "xt", "yt"),
+                                          ("X", "Y"), {}),
+    }[label]
+
+
+ROUTE_TAKEN = ["axes X", "axes X,Y", "axes Y,X", "axes X,Y,Z", "a registered area"]
+ROUTE_REFUSED = ["a ShardedTensor", "float64 data", "integer data", "keepdims", "dtype",
+                 "an interpolated metric", "a float64 metric", "a leading dim",
+                 "leading and trailing dims", "a gradient", "a view that is not contiguous"]
+
+
+@pytest.mark.parametrize("label", ROUTE_TAKEN + ROUTE_REFUSED)
+def test_the_route_of_integrate(label):
+    """A CPU tensor never takes the weighted-sum kernel: each case, also
+    those that take it on the card, resolves no factors, and integrate
+    multiplies, cleans and sums in PyTorch.  The card's twin of each case
+    is tests/test_torch_kernels.py::test_integrate_on_card_takes_one_launch."""
+    grid, da, axes, kwargs = _route_case(label)
+    assert _route(grid, da, axes, **kwargs) is None
+
+
+@pytest.mark.parametrize("grid_type", ["B", "C"])
+@pytest.mark.parametrize("axes", INTEGRATE_AXES)
+def test_integrate_float32_on_cpu(grid_type, axes, monkeypatch):
+    """float32 data on the CPU: PyTorch's product and sum as before the
+    kernel, which is never called; the JAX package's result within its
+    tolerance, with its dims and NaN footprint."""
+    calls = []
+    monkeypatch.setattr(grid_module, "weighted_sum", lambda *a: calls.append(a))
+    ds_j, g_j, ds_t, g_t = _grids(grid_type, float32=True)
+    for var in ("tracer", "u"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            r_t = g_t.integrate(ds_t[var], axes)
+            r_j = g_j.integrate(ds_j[var], axes)
+        _same(r_t, r_j, exact=False)
+    assert not calls
 
 
 # -- the calculus ------------------------------------------------------------------

@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from ..ops.kernels.weighted_sum import MAX_DIMS, MAX_FACTORS, weighted_sum
 from ..utils.profiling import span
 from . import gridops
 from .axis import Axis
@@ -383,7 +384,19 @@ class Grid:
         Conditions 3 and 4 scan in two phases: every product is tried for
         matching dims before any is interpolated.
         """
+        metric, _ = self._find_metric(array, axes)
+        if isinstance(metric, GriddedArray):
+            return metric
+        return _metric_product(metric, array)
+
+    def _find_metric(self, array, axes):
+        """``(metric, interpolated)``: what :meth:`get_metric` resolves
+        before it multiplies, either one metric (conditions 1 and 2) or the
+        tuple of factors whose :func:`_metric_product` is the metric
+        (conditions 3 and 4), in the order it multiplies them; and whether
+        it was interpolated (conditions 2 and 4, which warn)."""
         metric_vars = None
+        interpolated = False
         array_dims = set(array.dims)
         # an xarray array (derivative's host result) takes the metric on
         # the device its op ran on
@@ -410,6 +423,7 @@ class Grid:
                 metric_vars = self.interp_like(
                     self._metric_on(mv, device), array, "extend", None
                 )
+                interpolated = True
         else:
             for axis_combinations in iterate_axis_combinations(axes):
                 try:
@@ -433,8 +447,8 @@ class Grid:
                                              "extend", None)
                             for mv in last_combo
                         )
+                        interpolated = True
                     if metric_vars is not None:
-                        metric_vars = _metric_product(metric_vars, array)
                         break
                 except KeyError:
                     pass
@@ -443,7 +457,7 @@ class Grid:
                 f"Unable to find any combinations of metrics for array dims "
                 f"{array_dims!r} and axes {axes!r}"
             )
-        return metric_vars
+        return metric_vars, interpolated
 
     @span("xtt.grid_api.interp_like")
     def interp_like(self, array, like, boundary=None, fill_value=None):
@@ -977,16 +991,29 @@ class Grid:
         """The sum of ``da`` times the metric of ``axis`` over the axes'
         dims.  NaN in floating data is skipped (taken as 0; as in
         ``jnp.nan_to_num``, infinities become the largest finite values).
-        Keywords go to :meth:`GriddedArray.sum`."""
+        Keywords go to :meth:`GriddedArray.sum`.  A float32 CUDA tensor
+        summed over trailing dims with an uninterpolated float32 metric
+        takes one pass of the weighted-sum kernel, which builds the metric
+        per element from its factors and sums in float64
+        (:func:`_fused_factors`); anything else multiplies, cleans and sums
+        in PyTorch."""
         from ..adapters.xarray_adapter import as_native, collect_xr_inputs
 
         return_xr, xr_args = collect_xr_inputs([da])
         da = as_native(da)
-        weighted = da * self.get_metric(da, axis)
+        metric, interpolated = self._find_metric(da, axis)
         dim = self._get_dims_from_axis(da, axis)
-        if weighted.dtype.is_floating_point:
-            weighted = weighted.with_data(torch.nan_to_num(weighted.data, nan=0.0))
-        out = weighted.sum(dim, **kwargs)
+        factors = _fused_factors(da, metric, interpolated, dim, kwargs)
+        if factors is not None:
+            out = GriddedArray(weighted_sum(da.data, factors, len(dim)),
+                               da.dims[:da.ndim - len(dim)], name=da.name)
+        else:
+            if not isinstance(metric, GriddedArray):
+                metric = _metric_product(metric, da)
+            weighted = da * metric
+            if weighted.dtype.is_floating_point:
+                weighted = weighted.with_data(torch.nan_to_num(weighted.data, nan=0.0))
+            out = weighted.sum(dim, **kwargs)
         if return_xr:
             from ..adapters.xarray_adapter import reattach_coords
 
@@ -1164,6 +1191,37 @@ def _metric_product(factors, array) -> GriddedArray:
     data = functools.reduce(operator.mul, (_expand_to(f, order) for f in factors), 1)
     return GriddedArray(data.permute([order.index(d) for d in dims]), dims,
                         name=factors[0].name)
+
+
+def _fused_factors(da, metric, interpolated, dims, kwargs):
+    """The factors of ``metric`` as tensors in ``da``'s dim order (size 1
+    where a factor lacks a dim) when :meth:`Grid.integrate` can take the
+    weighted-sum kernel, else None.  It can when ``da`` holds a plain
+    contiguous float32 tensor on the card that needs no gradient,
+    no keyword goes to the sum, the metric was not interpolated and each
+    factor is a plain float32 tensor over some of ``da``'s dims (of their
+    sizes, or 1), and ``dims`` are ``da``'s trailing dims.  A
+    ``ShardedTensor`` (a subclass) keeps the product and the sum that
+    ``ShardedGrid.integrate`` relies on."""
+    factors = (metric,) if isinstance(metric, GriddedArray) else metric
+    x = da.data
+    if (interpolated or kwargs or type(x) is not torch.Tensor
+            or not x.is_cuda or x.dtype != torch.float32
+            or not x.is_contiguous() or not 1 <= x.ndim <= MAX_DIMS
+            or len(factors) > MAX_FACTORS
+            or not dims or len(set(dims)) != len(dims)
+            or set(dims) != set(da.dims[da.ndim - len(dims):])):
+        return None
+    tensors = [x]
+    for f in factors:
+        if (type(f.data) is not torch.Tensor or f.dtype != torch.float32
+                or f.data.device != x.device or not set(f.dims) <= set(da.dims)
+                or any(n not in (1, da.sizes[d]) for d, n in f.sizes.items())):
+            return None
+        tensors.append(_expand_to(f, da.dims))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return None
+    return tensors[1:]
 
 
 def _select_grid_ufunc(funcname, signature: GridUFuncSignature, module, **kwargs):

@@ -19,6 +19,9 @@ wrapper                     CUDA source                     replaces (Pallas, JA
 ``vorticity.vorticity`` (D) ``csrc/vorticity.cu``           ``pallas_stencils.fused_vorticity``
 ``face_shift.face_shift``   ``csrc/face_shift.cu``          ``pallas_stencils.face_shift_op``
 (E)
+``weighted_sum.``           ``csrc/weighted_sum.cu``        none: ``Grid.integrate``'s product,
+``weighted_sum``                                            ``nan_to_num`` and sum, which XLA
+                                                            fuses and eager PyTorch does not
 ==========================  ==============================  ===============================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -33,4 +36,5 @@ from . import (  # noqa: F401
     interp_linear,
     shift,
     vorticity,
+    weighted_sum,
 )

@@ -49,7 +49,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = (
     "shift.cu", "cgrid_diagnostics.cu", "interp_linear.cu", "conservative.cu",
-    "face_shift.cu", "vorticity.cu",
+    "face_shift.cu", "vorticity.cu", "weighted_sum.cu",
 )
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -68,6 +68,7 @@ LAUNCHES = {
     "conservative_multi": 0,
     "face_shift": 0,
     "vorticity": 0,
+    "weighted_sum": 0,
 }
 
 # Host seconds of the first call of each C entry in the process (the
@@ -127,6 +128,9 @@ SIGNATURES = {
     "xt_face_shift": (_P, _P, _P, _I, _L, _L, _L, _I, _I, _P),
     # u, v, inv_dx, inv_dy, zeta, dtype, ny, nx, stream
     "xt_vorticity": (_P, _P, _P, _P, _P, _I, _L, _L, _P),
+    # x, factors, strides, nf, sizes, segments, rows, vw, vpt, tiles,
+    # chunk_rows, chunks, partial, out, stream
+    "xt_weighted_sum": (_P, _PP, _LP, _I, _LP, _L, _L, _I, _I, _I, _L, _I, _P, _P, _P),
 }
 
 
