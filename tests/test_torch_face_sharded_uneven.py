@@ -128,6 +128,34 @@ def test_each_call_equals_the_single_device_grid(analysis, name):
     _assert_bitwise(got[name], want[name])
 
 
+def test_both_routes_of_kernel_e_take_the_one_halo_line_rule(monkeypatch):
+    """One ``diff``, single-device and on the {"f": 4} mesh: both routes
+    build kernel E's halo lines with ``core/topology.face_halo_lines``
+    (once for all 13 faces, once for each block's 4), on plans from the
+    Grid's one cache, and agree bit for bit."""
+    from xgcm_tpu_torch.core import topology
+    from xgcm_tpu_torch.ops import fused
+    from xgcm_tpu_torch.parallel import face_sharded
+
+    rows = []
+
+    def counting(strips, plan, rows_, *args, **kwargs):
+        rows.append(rows_)
+        return topology.face_halo_lines(strips, plan, rows_, *args, **kwargs)
+
+    for module in (fused, face_sharded):
+        assert module.face_halo_lines is topology.face_halo_lines
+        monkeypatch.setattr(module, "face_halo_lines", counting)
+    grid, sg, plain, placed = _setup(torch.float32)
+    want = grid.diff(plain["theta"], "X")
+    assert rows == [slice(None)]
+    got = sg.diff(placed["theta"], "X")
+    assert rows[1:] == [slice(f, f + FPD) for f in range(0, FPD * SHARDS, FPD)]
+    _assert_bitwise(got, want)
+    cpu = torch.device("cpu")
+    assert list(grid._face_plans) == [("X", "Y", cpu, FACES), ("X", "Y", cpu, FPD * SHARDS)]
+
+
 def test_the_analysis_assembles_nothing(analysis):
     assert analysis[-1] == 0
 

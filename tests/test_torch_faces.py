@@ -24,7 +24,8 @@ from tests.datasets import cubed_sphere_dataset
 from tests.torch_parity import assert_bitwise, to_numpy
 from xgcm_tpu.core.padding import pad as jax_pad
 from xgcm_tpu_torch.core import gridops
-from xgcm_tpu_torch.core.padding import pad
+from xgcm_tpu_torch.core.padding import BOUNDARY_TO_PAD_MODE, _pad_axis, pad
+from xgcm_tpu_torch.core.topology import basic_edge_line
 from xgcm_tpu_torch.ops import fused
 
 OPS = ("diff", "interp", "min", "max")
@@ -443,6 +444,31 @@ def test_grad_through_cubed_sphere_diff_matches_jax():
                                rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("nx", [1, 2, 5])
+@pytest.mark.parametrize("ny", [1, 2, 5])
+@pytest.mark.parametrize("side", [0, 1, 2, 3])
+@pytest.mark.parametrize("boundary", BCS)
+def test_basic_edge_line_is_the_pads_one_wide_line(boundary, side, ny, nx):
+    """The halo line of an unconnected edge on both routes of kernel E
+    (``core/topology.basic_edge_line``) is the line ``_pad_axis`` pads one
+    wide beyond the side, on both axes, before and after, at every length;
+    where the pad refuses (extrapolating before a one-long axis), so does
+    the line."""
+    b = torch.randn((3, ny, nx), generator=torch.Generator().manual_seed(side),
+                    dtype=torch.float64)
+    axis = 2 if side < 2 else 1
+    before = side % 2 == 0
+    try:
+        want = _pad_axis(b, axis, (1, 0) if before else (0, 1), BOUNDARY_TO_PAD_MODE[boundary],
+                         2.5).select(axis, 0 if before else -1)
+    except RuntimeError:
+        with pytest.raises(RuntimeError):
+            basic_edge_line(b, side, boundary, 2.5)
+        return
+    got = basic_edge_line(b, side, boundary, 2.5)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # routing of the fused face path
 # ---------------------------------------------------------------------------
@@ -462,7 +488,7 @@ def test_face_path_runs_kernel_e_wrapper_and_caches_the_plan(monkeypatch):
     for axis in ("X", "Y", "X"):
         g_t.diff(a_t, axis)
     assert calls == [("diff", "left", True), ("diff", "left", False), ("diff", "left", True)]
-    assert list(g_t._face_plans) == [("X", "Y", torch.device("cpu"))]
+    assert list(g_t._face_plans) == [("X", "Y", torch.device("cpu"), 6)]
 
 
 def test_kernel_errors_are_not_swallowed(monkeypatch):

@@ -977,6 +977,97 @@ def test_shift_and_diagnostics_kernels_carry_gradients(cuda):
         assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("grad_mode, needs", [(False, True), (True, False), (True, True)])
+def test_autograd_launch_takes_plain_backward_only_for_a_gradient(grad_mode, needs):
+    """``build.autograd_launch``, the kernel wrappers' one autograd rule:
+    the launch alone unless grad mode is on and an input needs a gradient;
+    then ``PlainBackward``, whose gradient is the plain version's."""
+    launched, planned = [], []
+
+    def launch(a, b):
+        launched.append(torch.is_grad_enabled())
+        return a * b
+
+    def plain(a, b):
+        planned.append(1)
+        return a * b
+
+    a = torch.arange(4.0, requires_grad=needs)
+    b = torch.full((4,), 3.0)
+    with torch.set_grad_enabled(grad_mode):
+        out = build.autograd_launch(launch, plain, a, b)
+    assert torch.equal(out, torch.arange(4.0) * 3)
+    through = grad_mode and needs
+    # PlainBackward's forward runs the launch with grad mode off
+    assert launched == [grad_mode and not through] and out.requires_grad == through
+    if through:
+        out.sum().backward()
+        assert planned == [1] and torch.equal(a.grad, b)
+
+
+def _gradient_wrappers(cuda):
+    """Every kernel wrapper that offers a gradient, by name: (its inputs,
+    the call), small, on the card."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    th, ph = _cuda_columns(cuda, 64, 10, seed=3)
+    th = th.nan_to_num(15.0)
+    t = torch.linspace(1, 29, 6, device=cuda)
+    tc, pc = _cuda_cells(cuda, 64, 10, seed=10)
+    tc, pc = tc.nan_to_num(3.0), pc.nan_to_num(0.5)
+    edges = torch.linspace(-1.0, 14.0, 6, device=cuda)
+    x = torch.randn((6, 16, 16), generator=g, device=cuda)
+    halo = torch.randn((6, 16), generator=g, device=cuda)
+    uv = [torch.randn(s, generator=g, device=cuda) for s in ((20, 30), (20, 30), (30,), (20,))]
+    return {
+        "shift": ([x], lambda x: shift(x, 1, "diff", "left", "extrapolate")),
+        "face_shift": ([x, halo], lambda x, h: face_shift(x, h, "interp", "right", False)),
+        "interp_linear": ([th, ph, t], interp_linear),
+        "interp_linear_multi": ([th, t, ph, ph * 2],
+                                lambda th, t, *phs: interp_linear_multi(th, list(phs), t)),
+        "conservative": ([tc, pc], lambda th, ph: kg.conservative_rebin(th, ph, edges)),
+        "conservative_multi": ([tc, pc, pc * 2],
+                               lambda th, *phs: kg.conservative_rebin_multi(th, list(phs), edges)),
+        "vorticity": (uv, vorticity),
+        "cgrid_diagnostics": (uv, cgrid_diagnostics),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["shift", "face_shift", "interp_linear", "interp_linear_multi",
+                                  "conservative", "conservative_multi", "vorticity",
+                                  "cgrid_diagnostics"])
+def test_kernel_wrappers_enter_plain_backward_only_for_a_gradient(cuda, name, monkeypatch):
+    """Under ``torch.no_grad()`` and on inputs that need no gradient a
+    wrapper launches its kernel without entering ``PlainBackward.forward``;
+    on inputs that need one it enters it once.  The launches and the
+    outputs are the same all three ways."""
+    entered = []
+    real = build.PlainBackward.forward
+
+    def forward(ctx, launch, plain, *tensors):
+        entered.append(name)
+        return real(ctx, launch, plain, *tensors)
+
+    monkeypatch.setattr(build.PlainBackward, "forward", staticmethod(forward))
+    inputs, call = _gradient_wrappers(cuda)[name]
+    results, counts = [], []
+    for needs, mode in ((True, torch.no_grad), (False, torch.enable_grad),
+                        (True, torch.enable_grad)):
+        ins = [a.clone().requires_grad_(needs) for a in inputs]
+        build.reset_launch_counts()
+        with mode():
+            out = call(*ins)
+        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        counts.append(build.launch_counts())
+        assert all(o.requires_grad == (needs and mode is torch.enable_grad) for o in outs)
+        results.append([o.detach() for o in outs])
+    assert entered == [name]
+    assert counts[0] == counts[1] == counts[2] and sum(counts[0].values()) >= 1
+    for outs in results[1:]:
+        for a, b in zip(outs, results[0]):
+            assert_close(a, b, rtol=0)
+
+
 @pytest.mark.cuda
 def test_face_analysis_on_card_matches_cpu(cuda):
     """The LLC face analysis (tracer gradients, vorticity, divergence, the

@@ -174,7 +174,8 @@ class Grid:
         else:
             self._facedim = None
             self._face_connections = None
-        # device copies of the compiled face plans, by (x axis, y axis, device)
+        # device copies of the compiled face plans, by (x axis, y axis, device,
+        # rows)
         self._face_plans: Dict[Any, Any] = {}
 
         # a dimension may serve exactly one (axis, position)
@@ -743,17 +744,18 @@ class Grid:
         )
         return data, arranged.dims
 
-    def _face_plan(self, x_axis: str, y_axis: str, device):
+    def _face_plan(self, x_axis: str, y_axis: str, device, n_faces_total: Optional[int] = None):
         """The face plan for (x_axis, y_axis) as tensors on ``device``,
         compiled and copied there once (``None`` when a connection runs
-        along neither axis)."""
-        from ..ops.fused import DeviceFacePlan
-        from .topology import compile_face_plan
+        along neither axis); ``n_faces_total`` rows as
+        :func:`~.topology.compile_face_plan` sizes them."""
+        from .topology import DeviceFacePlan, compile_face_plan
 
-        key = (x_axis, y_axis, torch.device(device))
+        rows = max(self._ds.dims[self._facedim], n_faces_total or 0)
+        key = (x_axis, y_axis, torch.device(device), rows)
         if key not in self._face_plans:
             try:
-                plan = compile_face_plan(self, x_axis, y_axis)
+                plan = compile_face_plan(self, x_axis, y_axis, n_faces_total=rows)
             except KeyError:
                 plan = None
             self._face_plans[key] = (

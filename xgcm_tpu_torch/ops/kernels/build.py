@@ -34,6 +34,7 @@ import torch
 __all__ = [
     "FIRST_LAUNCH_S",
     "LAUNCHES",
+    "autograd_launch",
     "build_library",
     "find_nvcc",
     "launch",
@@ -315,3 +316,13 @@ class PlainBackward(torch.autograd.Function):
             refs = ref if isinstance(ref, tuple) else (ref,)
             found = iter(torch.autograd.grad(refs, wanted, grads, allow_unused=True))
         return (None, None, *(next(found) if x.requires_grad else None for x in inputs))
+
+
+def autograd_launch(launch, plain, *tensors):
+    """``launch(*tensors)``, the kernel, as every wrapper that offers a
+    gradient calls it: directly when grad mode is off or no input needs a
+    gradient, else through :class:`PlainBackward`, so that autograd runs
+    through ``plain``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return PlainBackward.apply(launch, plain, *tensors)
+    return launch(*tensors)

@@ -78,4 +78,4 @@ def cgrid_diagnostics(
         build.LAUNCHES["cgrid_diagnostics"] += 1
         return zeta, div, ke
 
-    return build.PlainBackward.apply(launch, cgrid_diagnostics_plain, u, v, inv_dx, inv_dy)
+    return build.autograd_launch(launch, cgrid_diagnostics_plain, u, v, inv_dx, inv_dy)

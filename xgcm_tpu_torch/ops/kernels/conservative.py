@@ -213,18 +213,17 @@ def conservative_rebin(
     with ``out_T``.  The plain version for CPU tensors (which sums in one
     order, so ``reassociate`` changes nothing there), kernel G for CUDA
     tensors (``reassociate=True`` telescopes its mass sums)."""
-    if theta.device.type == "cpu":
-        out = _conservative_plain(theta, phi, edges)
-        return out.T if out_T else out
-
-    def launch(th, ph, ed):
-        return _launch_maybe_T(th, (ph,), ed, reassociate, out_T)[0]
-
     def plain(th, ph, ed):
         out = _conservative_plain(th, ph, ed)
         return out.T if out_T else out
 
-    return build.PlainBackward.apply(launch, plain, theta, phi, edges)
+    if theta.device.type == "cpu":
+        return plain(theta, phi, edges)
+
+    def launch(th, ph, ed):
+        return _launch_maybe_T(th, (ph,), ed, reassociate, out_T)[0]
+
+    return build.autograd_launch(launch, plain, theta, phi, edges)
 
 
 @span("xtt.kernels.conservative_multi")
@@ -238,16 +237,15 @@ def conservative_rebin_multi(
     """:func:`conservative_rebin` of 2 to 8 phis that share the bounds, in
     one pass; returns a list.  The plain version for CPU tensors, kernel H
     for CUDA tensors."""
+    def plain(th, ed, *phs):
+        return tuple(o.T if out_T else o for o in _conservative_multi_plain(th, phs, ed))
+
     if theta.device.type == "cpu":
-        outs = _conservative_multi_plain(theta, phis, edges)
-        return [o.T if out_T else o for o in outs]
+        return list(plain(theta, edges, *phis))
     if len(phis) < 2:
         raise ValueError("kernel H takes 2 to 8 variables; use conservative_rebin for one")
 
     def launch(th, ed, *phs):
         return tuple(_launch_maybe_T(th, phs, ed, reassociate, out_T))
 
-    def plain(th, ed, *phs):
-        return tuple(o.T if out_T else o for o in _conservative_multi_plain(th, phs, ed))
-
-    return list(build.PlainBackward.apply(launch, plain, theta, edges, *phis))
+    return list(build.autograd_launch(launch, plain, theta, edges, *phis))

@@ -97,4 +97,4 @@ def face_shift(
     def plain(x, halo):
         return face_shift_plain(x, halo, op, direction, axis=axis)
 
-    return build.PlainBackward.apply(launch, plain, x, halo)
+    return build.autograd_launch(launch, plain, x, halo)

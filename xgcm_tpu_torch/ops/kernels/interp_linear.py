@@ -213,9 +213,12 @@ def interp_linear(
     """np.interp of raw (cols, n) columns onto (m,) shared or (cols, m)
     targets; returns (cols, m), or (m, cols) with ``out_T``.  The plain
     version for CPU tensors, kernel C for CUDA tensors."""
-    if theta.device.type == "cpu":
-        out = _fused_ref_torch(theta, phi, target, mask_edges, check_flip)
+    def plain(th, ph, tg):
+        out = _fused_ref_torch(th, ph, tg, mask_edges, check_flip)
         return out.T if out_T else out
+
+    if theta.device.type == "cpu":
+        return plain(theta, phi, target)
 
     def launch(th, ph, tg):
         if not out_T:
@@ -224,11 +227,7 @@ def interp_linear(
         interp_linear_launch(th, ph, tg, mask_edges, check_flip, out=out.T)
         return out
 
-    def plain(th, ph, tg):
-        out = _fused_ref_torch(th, ph, tg, mask_edges, check_flip)
-        return out.T if out_T else out
-
-    return build.PlainBackward.apply(launch, plain, theta, phi, target)
+    return build.autograd_launch(launch, plain, theta, phi, target)
 
 
 @span("xtt.kernels.interp_linear_multi")
@@ -244,9 +243,12 @@ def interp_linear_multi(
     targets, in one pass; returns a list of (cols, m), or (m, cols) with
     ``out_T``.  The plain version for CPU tensors, kernel F for CUDA
     tensors."""
+    def plain(th, tg, *phs):
+        outs = _fused_multi_ref_torch(th, phs, tg, mask_edges, check_flip)
+        return tuple(o.T if out_T else o for o in outs)
+
     if theta.device.type == "cpu":
-        outs = _fused_multi_ref_torch(theta, phis, target, mask_edges, check_flip)
-        return [o.T if out_T else o for o in outs]
+        return list(plain(theta, target, *phis))
 
     def launch(th, tg, *phs):
         if not out_T:
@@ -256,8 +258,4 @@ def interp_linear_multi(
                                    outs=[o.T for o in outs])
         return tuple(outs)
 
-    def plain(th, tg, *phs):
-        outs = _fused_multi_ref_torch(th, phs, tg, mask_edges, check_flip)
-        return tuple(o.T if out_T else o for o in outs)
-
-    return list(build.PlainBackward.apply(launch, plain, theta, target, *phis))
+    return list(build.autograd_launch(launch, plain, theta, target, *phis))

@@ -92,35 +92,18 @@ def shift(
         raise TypeError(f"shift kernel takes {SHIFT_DTYPES}, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("shift kernel needs a contiguous tensor")
-    if not (x.requires_grad and torch.is_grad_enabled()):
-        return _launch(x, axis, op, direction, boundary, fill_value)
 
     def launch(x):
-        return _launch(x, axis, op, direction, boundary, fill_value)
+        out = torch.empty_like(x)
+        build.launch(
+            "xt_shift", x.device, x.data_ptr(), out.data_ptr(), build.DTYPE_CODES[x.dtype],
+            math.prod(x.shape[:axis]), x.shape[axis], math.prod(x.shape[axis + 1:]),
+            _OPS[op], _DIRECTIONS[direction], _BCS[boundary], float(fill_value),
+        )
+        build.LAUNCHES["shift"] += 1
+        return out
 
     def plain(x):
         return shift_plain(x, axis, op, direction, boundary, fill_value)
 
-    return build.PlainBackward.apply(launch, plain, x)
-
-
-def _launch(
-    x: torch.Tensor,
-    axis: int,
-    op: str,
-    direction: str,
-    boundary: Optional[str],
-    fill_value: float = 0.0,
-) -> torch.Tensor:
-    """One launch of the kernel on a contiguous CUDA tensor that
-    :func:`shift` has checked."""
-    shape = x.shape
-    out = torch.empty_like(x)
-    args = (
-        x.data_ptr(), out.data_ptr(), build.DTYPE_CODES[x.dtype],
-        math.prod(shape[:axis]), shape[axis], math.prod(shape[axis + 1:]),
-        _OPS[op], _DIRECTIONS[direction], _BCS[boundary], float(fill_value),
-    )
-    build.launch("xt_shift", x.device, *args)
-    build.LAUNCHES["shift"] += 1
-    return out
+    return build.autograd_launch(launch, plain, x)

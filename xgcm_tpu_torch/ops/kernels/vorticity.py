@@ -74,4 +74,4 @@ def vorticity(
         build.LAUNCHES["vorticity"] += 1
         return zeta
 
-    return build.PlainBackward.apply(launch, vorticity_plain, u, v, inv_dx, inv_dy)
+    return build.autograd_launch(launch, vorticity_plain, u, v, inv_dx, inv_dy)

@@ -32,9 +32,11 @@ strided slices (no lane window, which was a TPU layout workaround).
 
 The built-in ops (diff/interp/min/max) read a halo one wide on one side.
 On the dtypes kernel E takes and the basic boundary conditions, the route
-assembles each block's one halo line per face, from the strip pool where
-the block edge is a face edge and from the ring neighbour or the local
-boundary condition elsewhere, and launches E once per block
+builds each block's one halo line per face by the single-device fused
+path's rule (:func:`~xgcm_tpu_torch.core.topology.face_halo_lines` on the
+Grid's device plan, its rows the block's faces): from the strip pool where
+the block edge is a face edge, and from the ring neighbour or the local
+boundary condition elsewhere.  It launches E once per block
 (:func:`~xgcm_tpu_torch.ops.kernels.face_shift.face_shift`): one read and
 one write of the block.  It makes the collectives of the JAX program (the
 pool, and the ring exchange of both in-face axes that JAX's uniform
@@ -63,7 +65,7 @@ import torch
 from ..core.dataarray import GriddedArray
 from ..core.grid import Grid
 from ..core.padding import BOUNDARY_TO_PAD_MODE, _pad_axis
-from ..core.topology import FaceHaloPlan, compile_face_plan
+from ..core.topology import FaceHaloPlan, basic_edge_line, compile_face_plan, face_halo_lines
 from ..ops.kernels.face_shift import face_shift
 from ..ops.stencils import cumsum, wrapping
 from ..utils.profiling import span
@@ -317,18 +319,14 @@ class _Halos:
                                                    fv))
         return self._extended[key][1]
 
-    def strip(self, pool_self, pool_partner, g: int, side: int, extend: bool = True):
+    def strip(self, pool_self, pool_partner, g: int, side: int):
         """The canonical (..., w, L_t + 2w) halo strip of global face g's
-        side: inward-offset rows, tangential from -w to L_t + w (from 0 to
-        L_t without ``extend``)."""
+        side: inward-offset rows, tangential from -w to L_t + w."""
         plan = self.plan
         sf, ss = int(plan.src_face[g, side]), int(plan.src_side[g, side])
         pool = pool_partner if pool_partner is not None and plan.swap[g, side] else pool_self
         L_t = self.lay.ny if side < 2 else self.lay.nx
-        if extend:
-            strip = self._extended_pool(pool, L_t, ss >= 2)[..., sf, ss % 2, :, :]
-        else:
-            strip = pool[..., sf, ss, :, :L_t]
+        strip = self._extended_pool(pool, L_t, ss >= 2)[..., sf, ss % 2, :, :]
         dtype = strip.dtype
         if plan.tang_flip[g, side]:
             strip = wrapping(strip).flip(-1).view(dtype)
@@ -510,29 +508,13 @@ def face_halo_pad_widths(
     return result
 
 
-def _edge_line(b: torch.Tensor, axis: int, direction: str, mode: str, fv: float) -> torch.Tensor:
-    """The one-wide local pad line of ``b`` before (``direction`` "left")
-    or after ("right") ``axis``, as :func:`~xgcm_tpu_torch.core.padding._pad_axis`
-    gives it, computed from at most two edge lines: a new contiguous tensor
-    with ``axis`` dropped."""
-    n = b.shape[axis]
-    if mode == "wrap":
-        line = b.narrow(axis, n - 1 if direction == "left" else 0, 1)
-    else:
-        k = min(2, n)
-        if direction == "left":
-            line = _pad_axis(b.narrow(axis, 0, k), axis, (1, 0), mode, fv).narrow(axis, 0, 1)
-        else:
-            line = _pad_axis(b.narrow(axis, n - k, k), axis, (0, 1), mode, fv).narrow(axis, k, 1)
-    return line.squeeze(axis).clone(memory_format=torch.contiguous_format)
-
-
 def _face_shift_blocks(setup: FaceSetup, blocks, partner_blocks, funcname, direction, axis_is_x,
                        bc_x, bc_y, fv_x, fv_y, vector_axis_code) -> np.ndarray:
     """``funcname`` along the x or y axis of every (..., fpd, ny_loc,
-    nx_loc) block through kernel E, with the one halo line per face
-    assembled from the strip pool, the ring or the local boundary
-    condition."""
+    nx_loc) block through kernel E, with the one halo line per face built
+    by the plan's rule (:func:`~xgcm_tpu_torch.core.topology.face_halo_lines`)
+    from the strip pool where the block edge is a face edge, and from the
+    ring or the local boundary condition elsewhere."""
     mesh = setup.mesh
     lay = _layout(blocks, mesh, setup.face_mesh_axis, setup.interior_mesh_axis,
                   setup.interior_mesh_axis_x)
@@ -549,18 +531,17 @@ def _face_shift_blocks(setup: FaceSetup, blocks, partner_blocks, funcname, direc
             rings[axis] = ring_halos(blocks, axis, (1, 1), mesh, mesh_axis, bnd, float(fv))
     axis = -1 if axis_is_x else -2
     side = (0 if direction == "left" else 1) + (0 if axis_is_x else 2)
-    mode, fv = _bc(bc_x, fv_x) if axis_is_x else _bc(bc_y, fv_y)
-    halos = _Halos(setup.plan, lay, 1,
-                   {"x": _bc(bc_x, fv_x), "y": _bc(bc_y, fv_y)}, vector_axis_code)
+    boundary, fill_value = (bc_x, fv_x) if axis_is_x else (bc_y, fv_y)
+    ring_lines = rings[axis][0 if direction == "left" else 1] if axis in rings else None
     out = np.empty(blocks.shape, dtype=object)
     for c in coords(mesh):
         b = blocks[c].contiguous()
         with span("xtt.sharded.halo_lines"):
-            if axis in rings:
-                lines = rings[axis][0 if direction == "left" else 1]
-                halo = lines[c].squeeze(axis).clone(memory_format=torch.contiguous_format)
-            else:
-                halo = _edge_line(b, axis, direction, mode, fv)
+            def basic():
+                if ring_lines is not None:
+                    return ring_lines[c].squeeze(axis)
+                return basic_edge_line(b, side, boundary, float(fill_value))
+
             p, q = lay.p(c), lay.q(c)
             if axis_is_x:
                 owner = q == (0 if direction == "left" else lay.Q - 1)
@@ -569,12 +550,16 @@ def _face_shift_blocks(setup: FaceSetup, blocks, partner_blocks, funcname, direc
                 owner = p == (0 if direction == "left" else lay.P - 1)
                 seg = slice(q * lay.nx_loc, (q + 1) * lay.nx_loc)
             if owner:
-                pp = None if pool_partner is None else pool_partner[c]
-                for fl in range(lay.fpd):
-                    g = lay.face0(c) + fl
-                    if setup.plan.connected[g, side]:
-                        strip = halos.strip(pool_self[c], pp, g, side, extend=False)
-                        halo[..., fl, :] = strip[..., 0, seg]
+                plan = setup.grid._face_plan(setup.x_axis, setup.y_axis, b.device, setup.n_padded)
+                face0 = lay.face0(c)
+                halo = face_halo_lines(
+                    pool_self[c].squeeze(-2), plan, slice(face0, face0 + lay.fpd), side,
+                    lay.ny if axis_is_x else lay.nx, basic,
+                    partner=None if pool_partner is None else pool_partner[c].squeeze(-2),
+                    vector_axis_code=vector_axis_code, seg=seg,
+                )
+            else:
+                halo = basic().contiguous()
         out[c] = face_shift(b, halo, funcname, direction, axis_is_x)
     return out
 
