@@ -717,6 +717,98 @@ def test_conservative_kernels_on_walk_cases(cuda, label, dtype):
     chip_smoke.check_conservative_case(chip_smoke.Checker(), case, dtype)
 
 
+PREPASS_FEATURES = ("nan-at-run-start", "swap-across-runs", "huge-in-last-run", "one-valid",
+                    "empty-run-inside", "all-nan")
+
+
+def _prepass_columns(cuda, cols, n, feature, seed):
+    """Raw bounds (cols, n + 1) and eight fields (cols, n) for the prepass
+    of kernels G and H, which splits a column's n + 1 bounds into g runs of
+    ceil((n + 1) / g), g a power of two from 2 to 32 as the tile gives it.
+    Column i takes g = 32 >> (i % 5) and one boundary between two of its
+    runs, and ``feature`` is placed there (three columns in four; the
+    fourth stays plain): a NaN bound at the first bound of a run, a pair
+    out of order across the boundary, a bound beyond 2**126 alone in the
+    last run, a single valid bound, a run of NaN bounds between valid runs,
+    or all bounds NaN.  One column in three descends."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    th = torch.cumsum(torch.rand((cols, n + 1), generator=g, device=cuda) * (25.0 / n) + 0.01,
+                      -1) - 1.0
+    th[::3] = th[::3].flip(-1)
+    nk = n + 1
+    for i in range(cols):
+        if i % 4 == 3:
+            continue
+        gs = 32 >> (i % 5)
+        kn = -(-nk // gs)
+        runs = -(-nk // kn)  # runs that hold a bound
+        h = 1 + (i // 5) % max(runs - 1, 1)
+        b = min(h * kn, n)  # the first bound of run h
+        row = th[i]
+        if feature == "nan-at-run-start":
+            row[b if 0 < b < n else n // 2] = float("nan")
+        elif feature == "swap-across-runs":
+            row[b - 1], row[b] = row[b].clone(), row[b - 1].clone()
+        elif feature == "huge-in-last-run":
+            row[n] = 2.0**127 if row[n] > row[0] else -(2.0**127)
+        elif feature == "one-valid":
+            keep = row[b].clone()
+            row[:] = float("nan")
+            row[b] = keep
+        elif feature == "empty-run-inside":
+            lo = b if runs > 2 else 1
+            row[lo:min(lo + kn, n)] = float("nan")
+        else:
+            row[:] = float("nan")
+    phis = [torch.rand((cols, n), generator=g, device=cuda) * 2 - 0.5 for _ in range(8)]
+    phis[0][::7, n // 2] = float("nan")
+    return th, phis
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cols", [1001, 3])
+@pytest.mark.parametrize("n", [90, 20])
+@pytest.mark.parametrize("feature", PREPASS_FEATURES)
+def test_conservative_prepass_run_boundaries(cuda, feature, n, cols, dtype):
+    """Kernels G (both accumulators) and H (V = 2, 4, 8) against their plain
+    versions, in both output layouts, on columns whose prepass features sit
+    on the boundaries between the runs of the column's threads; H bit for
+    bit equal to V calls of G.  At n = 90, G's tile takes 32 columns (g = 4)
+    and H's at V = 4 takes 16 (g = 8); three columns (g = 32) at n = 20
+    leave runs with no bound (n + 1 < g); 1,001 columns end on a part
+    tile."""
+    th, phis = _prepass_columns(cuda, cols, n, feature, seed=31 + n)
+    th, phis = th.to(dtype), [p.to(dtype) for p in phis]
+    edges = torch.linspace(-1.0, 25.0, 27, device=cuda).to(dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+
+    def tol(p, scale=1.0):
+        if dtype == torch.bfloat16:
+            return dict(rtol=1e-2, atol=1e-2)
+        return dict(rtol=0, atol=scale * _rebin_tol(p))
+
+    for out_T in (False, True):
+        theta = th.T.contiguous().T if out_T else th
+        vs = [p.T.contiguous().T if out_T else p for p in phis]
+
+        def untransposed(o):
+            return o.T if out_T else o
+
+        plain_g = kg._conservative_plain(th, phis[0], edges)
+        for reassociate in (False, True):
+            got = untransposed(kg.conservative_rebin(theta, vs[0], edges, reassociate, out_T))
+            assert_close(got.float(), plain_g.float(), **tol(phis[0], 2.0 if reassociate else 1.0))
+        singles = [untransposed(kg.conservative_rebin(theta, p, edges, out_T=out_T)) for p in vs]
+        for nv in (2, 4, 8):
+            multi = kg.conservative_rebin_multi(theta, vs[:nv], edges, out_T=out_T)
+            plain = kg._conservative_multi_plain(th, phis[:nv], edges)
+            for v, (o, s, pl) in enumerate(zip(multi, singles, plain)):
+                o = untransposed(o)
+                assert torch.equal(o.view(bits), s.view(bits)), (out_T, nv, v)
+                assert_close(o.float(), pl.float(), **tol(phis[v]))
+
+
 @pytest.mark.cuda
 def test_conservative_kernel_gradient_matches_plain(cuda):
     th, ph = _cuda_cells(cuda, 64, 10, seed=10)

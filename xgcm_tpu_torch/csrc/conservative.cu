@@ -38,22 +38,34 @@
 //
 // Design (that of kernels C and F in interp_linear.cu).  A block of 128
 // threads takes a tile of TC consecutive columns (TC = 64, halved while the
-// tile would pass kTileBudget = 27 KB, so that eight blocks share an SM's
-// 228 KB: at n = 50 TC = 64 for G, 32 for H at V = 2..3, 16
-// at V = 4..7, 8 at V = 8, and about half that with reassociate; down to 1
-// for very deep columns).
+// tile would pass kTileBudget = 30 KB, so that seven or eight blocks share
+// an SM's 228 KB: at n = 90 TC = 32 for G, 16 for H at V = 2..4, 8 at
+// V = 5..8, and about half that with reassociate; down to 1 for very deep
+// columns).  H at V = 4 then runs 560 (column, bin) items a block on 128
+// threads (TC = 8 would leave the last of three rounds a fifth full).
 //   1. Staging.  The bounds and each field of the tile go to shared memory as
 //      float by cp.async (xt::load_tile: 16-byte copies for a contiguous
 //      tile into unpadded rows, element-wise along the smaller stride into
 //      rows of odd length otherwise).  The block checks that the edges are
 //      finite (|e| <= 2^126) and non-decreasing; items read them through
 //      the read-only cache.
-//   2. Prepass, one thread per column: the first and last valid bound f, l,
-//      the direction (descending when theta[l] < theta[f]), and whether the
-//      column may be walked: every bound from f to l valid, monotone in its
-//      direction, and within |theta| <= 2^126.  With reassociate it also
-//      builds, per variable, the prefix P[k] = sum of the weights of the
-//      valid cells below k.
+//   2. Prepass, g threads a column: g = 128 / TC', TC' the block's columns
+//      rounded up to a power of two, at most 32 so that a column's threads
+//      share a warp (at n = 90: 4 for G, 8 for H at V = 2..4; 32 for a
+//      block of up to four columns).  It finds the first and last valid
+//      bound f, l, the direction (descending when theta[l] < theta[f]), and
+//      whether the column may be walked: every bound from f to l valid,
+//      monotone in its direction, and within |theta| <= 2^126.  Each thread
+//      scans a run of about (n + 1) / g bounds without a branch: how many
+//      are valid, the first and last valid one, whether a bound lies below
+//      or above the one before it (NaN compares false, so a NaN neighbour
+//      sets neither), and whether one lies beyond 2^126; the group joins its
+//      runs by __shfl_xor_sync in log2 g steps.  Where the valid bounds fill
+//      [f, l], no NaN lies inside and the neighbours compared are the ones a
+//      pass over the valid bounds compares, so the metadata are those of
+//      one pass over the row.  With reassociate the block then builds, per
+//      walkable column and variable, the prefix P[k] = sum of the weights of
+//      the valid cells below k, each on one thread in ascending k.
 //   3. Work items.  Each thread takes (column, bin) items numbered along the
 //      output's smaller stride (bin-fastest for (cols, m - 1) outputs,
 //      column-fastest for the out_T (m - 1, cols) layout), so consecutive
@@ -122,8 +134,8 @@
 //
 // Shared memory per block: 16 TC + 4 (r4(TC r_t) + V r4(TC r_p)) bytes
 // (+ 4 V r4(TC (n + 1)) with reassociate), r_t = n + 1 or (n + 1) | 1,
-// r_p = n or n | 1, r4 rounding up to 4 floats (at n = 50: G 26,880 bytes
-// at TC = 64; H at V = 4 16,320 bytes at TC = 16).
+// r_p = n or n | 1, r4 rounding up to 4 floats (at n = 90: G 23,680 bytes
+// at TC = 32; H at V = 4 29,120 bytes at TC = 16).
 // Limit: a block must hold one column, so n is bounded by about
 // 227 KB / (4 (1 + V)) (29,000 cells for G, 6,400 for H at V = 8; half that
 // with reassociate); deeper columns get cudaErrorInvalidValue, and the
@@ -138,7 +150,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxTile = 64;             // columns a block takes at most
-constexpr int kTileBudget = 27 * 1024;   // shared bytes a tile aims to stay under: 8 blocks an SM
+constexpr int kMaxGroup = 32;            // threads a column's prepass takes at most
+constexpr int kTileBudget = 30 * 1024;   // shared bytes a tile aims to stay under: 7-8 blocks an SM
 constexpr int kMaxShared = 227 * 1024;   // what one block may have on the H100
 constexpr float kTame = 0x1p126f;        // bounds and edges the walk takes
 
@@ -213,34 +226,63 @@ __device__ __forceinline__ void deposit(const Cell& c, const float* ph, int vs, 
   }
 }
 
-// The prepass of one column's bounds row (nk = n + 1 bounds).
-__device__ __forceinline__ ColMeta prepare_column(const float* row, int nk) {
-  int first = -1, last = -1;
-  float prev = 0.0f;
-  bool up = true, down = true, hole = false, gap = false, tame = true;
-  for (int k = 0; k < nk; ++k) {
+// A run of bounds of one column row: its first and last valid bound (first
+// = nk, last = -1: none), how many are valid, and flags: kBelow where a
+// bound lies below the bound before it, kAbove where one lies above it (a
+// NaN compares false, so it sets neither), kHuge where a bound lies beyond
+// 2^126 (NaN is not).
+constexpr int kBelow = 1, kAbove = 2, kHuge = 4;
+struct Span {
+  int first, last, valid, flags;
+};
+
+__device__ __forceinline__ Span scan_span(const float* row, int k0, int k1, int nk) {
+  Span s{nk, -1, 0, 0};
+  if (k0 >= k1) return s;
+  float prev = k0 > 0 ? row[k0 - 1] : NAN;
+#pragma unroll 4
+  for (int k = k0; k < k1; ++k) {
     const float v = row[k];
-    if (isnan(v)) {
-      hole |= first >= 0;  // a NaN after the first valid bound ...
-      continue;
-    }
-    if (first < 0) {
-      first = k;
-    } else {
-      up &= v >= prev;
-      down &= v <= prev;
-      gap |= hole;  // ... with a valid bound after it
-    }
-    last = k;
-    tame &= fabsf(v) <= kTame;
+    const bool ok = !isnan(v);
+    s.valid += ok;
+    s.first = ok ? min(s.first, k) : s.first;
+    s.last = ok ? k : s.last;
+    s.flags |= (int)(v < prev) | (int)(v > prev) << 1 | (int)(fabsf(v) > kTame) << 2;
     prev = v;
   }
-  ColMeta cm{first, last, 0, 0};
-  if (first >= 0) {
-    const bool desc = row[last] < row[first];
-    cm.info = (desc ? kDesc : 0) | ((!gap && tame && (desc ? down : up)) ? kWalk : 0);
+  return s;
+}
+
+// The prepass of a tile (step 2), g threads a column: meta[c] from the
+// column's nk bounds, as one pass over the row gives it.  Every thread of
+// the block calls it.
+__device__ __forceinline__ void prepare_tile(const float* th_s, int rs, ColMeta* meta, int tc,
+                                             int nk, int g) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int c = threadIdx.x / g, h = threadIdx.x - c * g;
+  const bool active = c < tc;
+  const float* row = th_s + c * rs;
+  const int kn = (nk + g - 1) / g;
+  const int k0 = min(nk, h * kn), k1 = active ? min(nk, k0 + kn) : k0;
+  Span s = scan_span(row, k0, k1, nk);
+  for (int d = 1; d < g; d <<= 1) {  // the group's lanes differ in the bits below g
+    s.first = min(s.first, __shfl_xor_sync(kAll, s.first, d));
+    s.last = max(s.last, __shfl_xor_sync(kAll, s.last, d));
+    s.valid += __shfl_xor_sync(kAll, s.valid, d);
+    s.flags |= __shfl_xor_sync(kAll, s.flags, d);
   }
-  return cm;
+  if (!active || h != 0) return;
+  ColMeta cm{-1, -1, 0, 0};
+  if (s.valid > 0) {
+    // every bound of [first, last] valid: no NaN inside, and the neighbours
+    // compared are the valid ones a pass over the valid bounds compares
+    const bool inside = s.valid == s.last - s.first + 1;
+    const bool desc = row[s.last] < row[s.first];
+    const bool mono = !(s.flags & (desc ? kAbove : kBelow));
+    const bool walk = inside && mono && !(s.flags & kHuge);
+    cm = ColMeta{s.first, s.last, (desc ? kDesc : 0) | (walk ? kWalk : 0), 0};
+  }
+  meta[c] = cm;
 }
 
 // The first bound i in [lo, hi] with s * row[i] >= x (hi + 1 if none), on a
@@ -286,27 +328,30 @@ __global__ void __launch_bounds__(kThreads, 8) conservative_kernel(
   xt::wait_copies();
   const bool edges_ok = !__syncthreads_or(bad);
 
-  // 2. the prepass, one thread per column
-  for (int c = threadIdx.x; c < tc; c += blockDim.x) {
-    const float* row = th_s + c * rs_t;
-    const ColMeta cm = prepare_column(row, n + 1);
-    meta[c] = cm;
-    if (reassoc && (cm.info & kWalk)) {
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        const float* ph = ph_s + v * vs + c * rs_p;
-        float* p = pre + v * ps + c * (n + 1);
-        float acc = 0.0f;
-        p[0] = acc;
-        for (int k = 0; k < n; ++k) {
-          const float x = ph[k];
-          if (!isnan(x) && !(isnan(row[k]) && isnan(row[k + 1]))) acc += weight(x);
-          p[k + 1] = acc;
-        }
+  // 2. the prepass, g threads a column (g a power of two: the block's
+  // columns, rounded up to one, share its threads, at most kMaxGroup each)
+  int cols2 = 1;
+  while (cols2 < tc) cols2 <<= 1;
+  prepare_tile(th_s, rs_t, meta, tc, n + 1, min(kThreads / cols2, kMaxGroup));
+  __syncthreads();
+  if (reassoc) {
+    // the prefixes of the walkable columns, each summed in ascending k
+    for (int i = threadIdx.x; i < tc * NV; i += blockDim.x) {
+      const int c = i % tc, v = i / tc;
+      if (!(meta[c].info & kWalk)) continue;
+      const float* row = th_s + c * rs_t;
+      const float* ph = ph_s + v * vs + c * rs_p;
+      float* p = pre + v * ps + c * (n + 1);
+      float acc = 0.0f;
+      p[0] = acc;
+      for (int k = 0; k < n; ++k) {
+        const float x = ph[k];
+        if (!isnan(x) && !(isnan(row[k]) && isnan(row[k + 1]))) acc += weight(x);
+        p[k + 1] = acc;
       }
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   // 3. (column, bin) items numbered along the output's smaller stride
   const bool bin_fast = llabs(o_js) <= llabs(o_cs);
