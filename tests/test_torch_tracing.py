@@ -27,6 +27,7 @@ import torch
 import tests.torch_parity  # noqa: F401  (the port's host data on the CPU)
 import xgcm_tpu_torch as xtt
 from xgcm_tpu_torch import utils
+from xgcm_tpu_torch.core import device as port_device
 from xgcm_tpu_torch.ops import transform as torch_tf
 from xgcm_tpu_torch.ops.kernels import build
 from xgcm_tpu_torch.utils import profiling
@@ -38,9 +39,10 @@ from benchmark import harness, trace  # noqa: E402
 
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 TINY = {"llc4320-face": {"ny": 24, "nx": 32, "nz": 12},
+        "llc4320-face-host": {"ny": 24, "nx": 32, "nz": 12},
         "llc4320-level": {"ny": 16, "nx": 16},
         "llc4320-levels-4gpu": {"ny": 16, "nx": 16, "nz": 2}}
-PROGRAM_LAYERS = ("grid_api", "arith", "face_halo", "transform", "kernels", "sharded")
+PROGRAM_LAYERS = ("grid_api", "arith", "face_halo", "transform", "kernels", "sharded", "bridge")
 SPAN_CALL = re.compile(r"""\bspan\(\s*["']([^"']+)["']""")
 
 
@@ -259,10 +261,12 @@ def _listed(cell):
 @pytest.mark.parametrize("name", [w["name"] for w in SPEC["workloads"]])
 def test_cell_rehearsal_reports_program_metrics(name, monkeypatch):
     """A tiny traced CPU run of each cell, with the transforms routed through
-    the kernel wrappers' plain versions as on the card: every program metric
-    listed for the cell is reported, and the kernel wrappers' spans a step
-    equal the recipe's launches."""
+    the kernel wrappers' plain versions and host data through the bridge's
+    spans, as on the card: every program metric listed for the cell is
+    reported, and the kernel wrappers' spans a step equal the recipe's
+    launches."""
     monkeypatch.setattr(torch_tf, "_KERNEL_DEVICE", "cpu")
+    monkeypatch.setattr(port_device, "HOST_MEMORY", ())
     config = next(w["config"] for w in SPEC["workloads"] if w["name"] == name)
     cell = harness.Cell(SPEC, name, sizes=TINY[config])
     line = harness.run_cell(cell, 2**31 + 977, 0.05, True, torch.device("cpu"),

@@ -26,6 +26,7 @@ import torch
 
 from ..core.dataarray import GriddedArray
 from ..core.dataset import Dataset
+from ..core.device import to_device, to_host
 
 try:
     import xarray as xr
@@ -51,16 +52,17 @@ __all__ = [
 
 
 def host_array(x) -> np.ndarray:
-    """``x`` as a host numpy array: a tensor is copied from its device, a
-    host array stays as it is.  A bfloat16 tensor raises ``TypeError``:
-    numpy has no bfloat16 of its own."""
+    """``x`` as a host numpy array: a tensor is copied from its device by
+    :func:`~xgcm_tpu_torch.core.device.to_host`, a host array stays as it
+    is.  A bfloat16 tensor raises ``TypeError``: numpy has no bfloat16 of
+    its own."""
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             raise TypeError(
                 "a torch.bfloat16 result has no numpy dtype to go to xarray "
                 "with; cast it (e.g. to float32) on the native path first"
             )
-        return x.detach().cpu().numpy()
+        return to_host(x)
     return np.asarray(x)
 
 
@@ -204,7 +206,7 @@ def as_native(obj: Any) -> Any:
 def dataarray_from_xarray(da: "xr.DataArray") -> GriddedArray:
     """The DataArray's data as a tensor on the default device, with its
     dims, name and attrs."""
-    return GriddedArray(np.asarray(da.data), tuple(da.dims), name=da.name, attrs=dict(da.attrs))
+    return GriddedArray(to_device(da.data), tuple(da.dims), name=da.name, attrs=dict(da.attrs))
 
 
 def dataset_from_xarray(ds: "xr.Dataset") -> Dataset:

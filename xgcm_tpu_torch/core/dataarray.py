@@ -23,18 +23,18 @@ import numpy as np
 import torch
 
 from ..utils.profiling import span
-from .device import resolve_device
+from .device import to_device, to_host
 
 __all__ = ["GriddedArray", "as_tensor"]
 
 
 def as_tensor(x, device=None) -> torch.Tensor:
     """``x`` as a tensor.  A tensor keeps its device unless ``device`` is
-    given; host data goes to ``device``, else to the default device (on
-    the CPU it shares numpy's memory where numpy allows it)."""
+    given; host data goes through :func:`~.device.to_device` to ``device``,
+    else to the default device."""
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
-    return torch.as_tensor(np.asarray(x), device=resolve_device(device))
+    return to_device(x, device)
 
 
 class GriddedArray:
@@ -128,9 +128,10 @@ class GriddedArray:
 
     @property
     def values(self) -> np.ndarray:
-        """Data as a numpy array (copies device tensors to the host)."""
+        """Data as a numpy array (device tensors are copied to the host by
+        :func:`~.device.to_host`)."""
         if isinstance(self.data, torch.Tensor):
-            return self.data.detach().cpu().numpy()
+            return to_host(self.data)
         return np.asarray(self.data)
 
     def get_axis_num(self, dim: str) -> int:

@@ -14,6 +14,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 
 from .dataarray import GriddedArray
+from .device import to_device
 
 __all__ = ["Dataset"]
 
@@ -212,8 +213,7 @@ def from_numpy_dataset(ds, device=None) -> Dataset:
         return GriddedArray.on_host(np.asarray(v.data), v.dims, name=v.name, attrs=v.attrs)
 
     def _var(v):
-        return GriddedArray(np.asarray(v.data), v.dims, name=v.name, attrs=v.attrs,
-                            device=device)
+        return GriddedArray(to_device(v.data, device), v.dims, name=v.name, attrs=v.attrs)
 
     return Dataset(
         coords={k: _coord(v) for k, v in ds.coords.items()},

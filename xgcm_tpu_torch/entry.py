@@ -5,6 +5,8 @@ of the JAX package (``__graft_entry__.entry``): C-grid vorticity,
 divergence and kinetic energy through the Grid API, then the kinetic energy
 remapped onto theta surfaces per column.  On CUDA tensors it runs the shift
 kernel (four diffs and two interps) and the linear-interpolation kernel.
+Host numpy in gives host numpy out: the inputs go to the default device and
+the results come back through the bridge of :mod:`.core.device`.
 
 ``dryrun_multichip(n_shards)`` runs one sharded program per route of
 :mod:`xgcm_tpu_torch.parallel` on tiny shapes, each against the
@@ -14,13 +16,14 @@ for its routes 1, 2, 3, 4 and 6).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .core.dataarray import GriddedArray
 from .core.dataset import Dataset
+from .core.device import to_device, to_host
 from .core.grid import Grid
 from .ops.transform import interp_1d_linear
 from .utils.profiling import span
@@ -48,18 +51,32 @@ def build_grid(nx: int, ny: int) -> Grid:
     )
 
 
+Array = Union[torch.Tensor, np.ndarray]
+
+
 @span("xtt.grid_api.entry_step")
 def step(
-    u: torch.Tensor,
-    v: torch.Tensor,
-    theta: torch.Tensor,
-    targets: torch.Tensor,
+    u: Array,
+    v: Array,
+    theta: Array,
+    targets: Array,
     grid: Optional[Grid] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[Array, Array, Array]:
     """(zeta, div, ke_on_theta) for u on (yc, xg), v on (yg, xc), both
     (ny, nx), and theta (ny, nx, nz) with a monotone column per point;
     ``targets`` (m,) are the theta levels.  ``grid`` defaults to
-    :func:`build_grid` of u's shape."""
+    :func:`build_grid` of u's shape.
+
+    Tensors in give tensors out, on the device of the inputs.  When u, v
+    and theta are host numpy arrays, they and ``targets`` are copied to the
+    default device by :func:`~.core.device.to_device`, and the three results
+    come back by :func:`~.core.device.to_host` as host numpy arrays that the
+    caller owns: no later call writes into them, and the port keeps no copy
+    of the inputs, so a caller may change an input in place between calls.
+    The values are those of the tensor path, word for word."""
+    host = all(isinstance(a, np.ndarray) for a in (u, v, theta))
+    if host:  # host targets follow theta through interp_1d_linear's as_tensor
+        u, v, theta = to_device(u), to_device(v), to_device(theta)
     ny, nx = u.shape
     nz = theta.shape[-1]
     if grid is None:
@@ -74,6 +91,8 @@ def step(
     # vertical transform of KE onto theta surfaces (per column)
     ke_cols = ke.data[..., None].expand(ny, nx, nz)
     ke_on_theta = interp_1d_linear(ke_cols, theta, targets, mask_edges=False)
+    if host:
+        return to_host(zeta.data), to_host(div.data), to_host(ke_on_theta)
     return zeta.data, div.data, ke_on_theta
 
 

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from ..core.device import to_host
 from ..utils.profiling import span
 
 __all__ = [
@@ -269,7 +270,7 @@ class ShardedTensor(torch.Tensor):
         return super().to(*args, **kwargs)
 
     def numpy(self, *, force=False):
-        return self.full_tensor().detach().cpu().numpy()
+        return to_host(self.full_tensor())
 
     def __array__(self, dtype=None, copy=None):
         a = self.numpy()

@@ -5,12 +5,12 @@ timer, a wrapper over ``torch.profiler`` traces, and the program's own
 spans.
 
 :func:`span` marks a layer boundary of the package (``xtt.<layer>.<what>``:
-``grid_api``, ``arith``, ``face_halo``, ``transform``, ``kernels``).  While
-a ``torch.profiler`` records, each span is a ``record_function`` range, so
-it lands in the trace beside the card's kernels, copies and memsets, on
-their clock, and it adds its call and its host self time to a table that
-:func:`span_totals` reads.  While none records, a span costs one check of
-the profiler's state and nothing else.
+``grid_api``, ``arith``, ``face_halo``, ``transform``, ``kernels``,
+``bridge``).  While a ``torch.profiler`` records, each span is a
+``record_function`` range, so it lands in the trace beside the card's
+kernels, copies and memsets, on their clock, and it adds its call and its
+host self time to a table that :func:`span_totals` reads.  While none
+records, a span costs one check of the profiler's state and nothing else.
 """
 
 from __future__ import annotations
