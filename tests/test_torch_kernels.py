@@ -55,6 +55,7 @@ from xgcm_tpu_torch.ops.kernels.interp_linear import (
     interp_linear,
     interp_linear_multi,
 )
+from xgcm_tpu_torch.ops.kernels import face_shift as kfs
 from xgcm_tpu_torch.ops.kernels.face_shift import face_shift, face_shift_plain
 from xgcm_tpu_torch.ops.kernels.shift import shift, shift_plain
 from xgcm_tpu_torch.ops.kernels.vorticity import vorticity, vorticity_plain
@@ -253,7 +254,9 @@ def test_face_shift_axis_form_plain(op, direction, axis):
     else:
         want = ops[op](x, np.concatenate([np.take(x, range(1, n), axis), h], axis))
     tx, th = torch.as_tensor(x), torch.as_tensor(halo)
+    routes = dict(kfs.ROUTES)
     got = face_shift(tx, th, op, direction, axis=axis)
+    assert kfs.ROUTES == routes  # the plain version takes no route of the kernel
     np.testing.assert_array_equal(got.numpy(), want)
     assert torch.equal(got, face_shift_plain(tx, th, op, direction, axis=axis))
     if axis >= 1:
@@ -889,8 +892,10 @@ def test_face_shift_kernel_matches_plain(cuda, op, direction, axis_is_x, dtype):
     halo[1, 2, 3], halo[0, 5, 36] = float("nan"), float("inf")
     x, halo = x.to(dtype), halo.to(dtype)
     build.reset_launch_counts()
+    _reset_routes()
     k = face_shift(x, halo, op, direction, axis_is_x)
     assert build.launch_counts()["face_shift"] == 1
+    assert kfs.ROUTES == {"rows": 0, "planes": 0, "scalar": 1}  # 37 wide: no vectors
     p = _plain_in_f32(face_shift_plain, dtype, x, halo, op=op, direction=direction,
                       axis_is_x=axis_is_x)
     _assert_same_values(k, p)
@@ -910,8 +915,103 @@ def test_face_shift_kernel_axis_form_matches_plain(cuda, axis, dtype, misaligned
     halo = chip_smoke.sprinkled(g, cuda, hshape, dtype, misaligned)
     for op, direction in itertools.product(("diff", "interp", "min", "max"), ("left", "right")):
         build.reset_launch_counts()
+        _reset_routes()
         k = face_shift(x, halo, op, direction, axis=axis)
         assert build.launch_counts()["face_shift"] == 1
+        assert kfs.ROUTES == {"rows": 0, "planes": 0, "scalar": 1}  # runs of 45 or 1,665
+        p = _plain_in_f32(face_shift_plain, dtype, x, halo, op=op, direction=direction,
+                          axis=axis)
+        _assert_same_values(k, p)
+
+
+def _reset_routes():
+    kfs.ROUTES.update(dict.fromkeys(kfs.ROUTES, 0))
+
+
+def _edged(g, dev, shape, dtype, misaligned):
+    """N(0, 9) values with NaN, +-inf and -0.0 on each edge line of the last
+    two axes and around the vector and warp-segment boundaries of the last
+    one (elements 3, 4, 127, 128); ``misaligned`` puts the data one element
+    off 16 bytes."""
+    off = max(1, 4 // torch.tensor([], dtype=dtype).element_size()) if misaligned else 0
+    n = int(np.prod(shape))
+    flat = torch.randn((n + off,), generator=g, device=dev).mul_(3)
+    x = flat[off:].view(shape)
+    specials = (float("nan"), float("inf"), -float("inf"), -0.0)
+    for i, v in enumerate(specials):
+        x[..., min(i, shape[-2] - 1), min(2 * i + 1, shape[-1] - 1)] = v  # first row
+        x[..., -1, max(shape[-1] - 2 - 2 * i, 0)] = specials[-1 - i]  # last row
+        x[..., min(3 * i + 1, shape[-2] - 1), 0] = v  # first column
+        x[..., max(shape[-2] - 2 - i, 0), -1] = specials[-1 - i]  # last column
+    for i, at in enumerate((3, 4, 127, 128)):
+        if at < shape[-1]:
+            x[..., min(i, shape[-2] - 1), at] = specials[i]
+    flat = flat.to(dtype)
+    x = flat[off:off + n].view(shape)
+    assert (x.data_ptr() % 16 != 0) == misaligned
+    return x
+
+
+# label: (shape, roll axis, the array one element off 16 bytes).  The face
+# form for the last two axes, the axis= form for axis 0.  3 x 2 faces of
+# 96 x 4,104 and 4,104 x 96 take several blocks' chunks on each route.
+FACE_SHIFT_CASES = {
+    "rows-wide": ((3, 2, 96, 4104), -1, None),
+    "planes-wide": ((3, 2, 96, 4104), -2, None),
+    "rows-tall": ((3, 2, 4104, 96), -1, None),
+    "planes-tall": ((3, 2, 4104, 96), -2, None),
+    "odd-rows": ((2, 3, 37, 45), -1, None),
+    "odd-planes": ((2, 3, 45, 37), -2, None),
+    "x-off-rows": ((2, 3, 40, 64), -1, "x"),
+    "x-off-planes": ((2, 3, 40, 64), -2, "x"),
+    "halo-off-rows": ((2, 3, 40, 64), -1, "halo"),
+    "halo-off-planes": ((2, 3, 40, 64), -2, "halo"),
+    "n1-rows": ((2, 3, 16, 1), -1, None),
+    "n1-planes": ((2, 3, 1, 64), -2, None),
+    "n2-rows": ((2, 3, 16, 2), -1, None),
+    "n2-planes": ((2, 3, 2, 64), -2, None),
+    "lead-axis": ((5, 8, 64), 0, None),
+}
+
+
+def _face_shift_route(x, halo, axis):
+    """The route the kernel should take: 16-byte vectors need x and out
+    aligned (out is new, so aligned), the halo too where the planes route
+    loads it in vectors, and a contiguous run that fills whole vectors."""
+    rows = axis % x.ndim == x.ndim - 1
+    run = x.shape[axis] if rows else int(np.prod(x.shape[axis % x.ndim + 1:]))
+    aligned = x.data_ptr() % 16 == 0 and (rows or halo.data_ptr() % 16 == 0)
+    if run % (16 // x.element_size()) or not aligned:
+        return "scalar"
+    return "rows" if rows else "planes"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("label", FACE_SHIFT_CASES)
+def test_face_shift_kernel_routes_match_plain(cuda, label, dtype):
+    """Each route of kernel E (rows, planes, and their scalar form) against
+    the plain version for every op and direction: values, NaN and
+    infinities where the plain version puts them, and one launch a call
+    counted under the route the layout asks for."""
+    shape, axis, off = FACE_SHIFT_CASES[label]
+    g = torch.Generator(device=cuda).manual_seed(25)
+    hshape = shape[:axis % len(shape)] + shape[axis % len(shape) + 1:]
+    x = _edged(g, cuda, shape, dtype, off == "x")
+    halo = _edged(g, cuda, hshape, dtype, off == "halo")
+    route = _face_shift_route(x, halo, axis)
+    # f64 vectors hold 2 elements, so its rows of 2 fill them
+    assert (route == "scalar") == (label.startswith(("odd", "x-off", "halo-off-planes", "n1-rows"))
+                                   or (label == "n2-rows" and dtype != torch.float64))
+    for op, direction in itertools.product(("diff", "interp", "min", "max"), ("left", "right")):
+        build.reset_launch_counts()
+        _reset_routes()
+        if axis < 0:
+            k = face_shift(x, halo, op, direction, axis == -1)
+        else:
+            k = face_shift(x, halo, op, direction, axis=axis)
+        assert build.launch_counts()["face_shift"] == 1
+        assert kfs.ROUTES == {name: int(name == route) for name in kfs.ROUTES}, label
         p = _plain_in_f32(face_shift_plain, dtype, x, halo, op=op, direction=direction,
                           axis=axis)
         _assert_same_values(k, p)

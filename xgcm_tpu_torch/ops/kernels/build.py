@@ -95,6 +95,7 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 _PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
 _LP = ctypes.POINTER(ctypes.c_longlong)  # host array of strides
+_IP = ctypes.POINTER(ctypes.c_int)  # an int the entry writes
 
 # argtypes of every C entry point (pointers and the stream as c_void_p, so
 # ctypes never truncates them to 32 bits)
@@ -125,8 +126,8 @@ SIGNATURES = {
         _P, _PP, _LP, _LP, _PP, _P, _I, _I, _I,
         _L, _L, _L, _L, _L, _L, _L, _I, _P,
     ),
-    # x, halo, out, dtype, outer, n, inner, op, direction, stream
-    "xt_face_shift": (_P, _P, _P, _I, _L, _L, _L, _I, _I, _P),
+    # x, halo, out, dtype, outer, n, inner, op, direction, route (out), stream
+    "xt_face_shift": (_P, _P, _P, _I, _L, _L, _L, _I, _I, _IP, _P),
     # u, v, inv_dx, inv_dy, zeta, dtype, ny, nx, stream
     "xt_vorticity": (_P, _P, _P, _P, _P, _I, _L, _L, _P),
     # x, factors, strides, nf, sizes, segments, rows, vw, vpt, tiles,

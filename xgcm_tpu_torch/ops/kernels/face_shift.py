@@ -10,11 +10,13 @@ ring route of the sharded layer (``parallel/halo.py``) passes a block and
 the neighbour shard's edge line.  A CPU tensor takes the plain version,
 :func:`face_shift_plain` (the concat formulation that ends
 ``xgcm_tpu.ops.fused.fused_face_shift_op``); a CUDA tensor launches the
-kernel or raises.  Gradients run through the plain version.
+kernel or raises.  Gradients run through the plain version.  :data:`ROUTES`
+counts the kernel's launches by the route it took.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -25,7 +27,13 @@ from ...utils.profiling import span
 from . import build
 from .shift import _DIRECTIONS, _OPS, SHIFT_DTYPES
 
-__all__ = ["face_shift", "face_shift_plain"]
+__all__ = ["ROUTES", "face_shift", "face_shift_plain"]
+
+# Launches of the kernel by the route its C entry took and reported: "rows"
+# (the roll axis is the last) and "planes" (it is not) in 16-byte vectors,
+# "scalar" for a view the vectors cannot take.
+ROUTES = {"rows": 0, "planes": 0, "scalar": 0}
+_ROUTE_NAMES = ("rows", "planes", "scalar")  # the codes of csrc/face_shift.cu
 
 
 def _resolve_axis(x: torch.Tensor, axis_is_x: Optional[bool], axis: Optional[int]) -> int:
@@ -86,12 +94,15 @@ def face_shift(
 
     def launch(x, halo):
         out = torch.empty_like(x)
+        route = ctypes.c_int(-1)
         build.launch(
             "xt_face_shift", x.device,
             x.data_ptr(), halo.data_ptr(), out.data_ptr(), build.DTYPE_CODES[x.dtype],
-            outer, n, inner, _OPS[op], _DIRECTIONS[direction],
+            outer, n, inner, _OPS[op], _DIRECTIONS[direction], ctypes.byref(route),
         )
         build.LAUNCHES["face_shift"] += 1
+        if route.value >= 0:
+            ROUTES[_ROUTE_NAMES[route.value]] += 1
         return out
 
     def plain(x, halo):
