@@ -1,5 +1,6 @@
 """The port's own spans and counters (``xgcm_tpu_torch.utils.span``,
-``build.FIRST_LAUNCH_S``) and the benchmark's readers of them.
+``build.FIRST_LAUNCH_S``, ``core.padding.FACE_PADS`` beside the span
+``xtt.face_pad.generic``) and the benchmark's readers of them.
 
 On the CPU: a span does nothing but check while no profiler records; under
 ``torch.profiler`` spans are ``user_annotation`` ranges of the trace and
@@ -7,7 +8,8 @@ their host self times add up; the face analysis of an LLC grid opens the
 spans its layers imply; every span of the package is named ``xtt.<layer>.``;
 each reader on a synthetic trace; each benchmark cell's tiny traced
 rehearsal reports the program's metrics listed for it; the first call of a
-C entry is timed once.  On a CUDA card (``cuda``, skipped elsewhere): the
+C entry is timed once; a generic face pad counts and opens its span, a
+fused face op neither.  On a CUDA card (``cuda``, skipped elsewhere): the
 kernel wrappers' spans equal the launches counted over a traced window.
 Imports no JAX, so the card's machine runs it with ``--noconftest``.
 """
@@ -41,8 +43,12 @@ SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 TINY = {"llc4320-face": {"ny": 24, "nx": 32, "nz": 12},
         "llc4320-face-host": {"ny": 24, "nx": 32, "nz": 12},
         "llc4320-level": {"ny": 16, "nx": 16},
-        "llc4320-levels-4gpu": {"ny": 16, "nx": 16, "nz": 2}}
-PROGRAM_LAYERS = ("grid_api", "arith", "face_halo", "transform", "kernels", "sharded", "bridge")
+        "llc4320-levels-4gpu": {"ny": 16, "nx": 16, "nz": 2},
+        "llc90-ecco": {"ny": 8, "nx": 8, "nz": 4, "nt": 2, "nt_snp": 3}}
+# program counters of what a cell should never do: each reads 0 there
+ZERO_COUNTERS = ("sharded.assemblies", "face_pad.generic_calls")
+PROGRAM_LAYERS = ("grid_api", "arith", "face_halo", "face_pad", "transform", "kernels", "sharded",
+                  "bridge")
 SPAN_CALL = re.compile(r"""\bspan\(\s*["']([^"']+)["']""")
 
 
@@ -149,6 +155,46 @@ def test_face_analysis_spans_on_llc_grid():
         "xtt.grid_api.diff": 6, "xtt.grid_api.interp": 2, "xtt.grid_api.interp_2d_vector": 1,
         "xtt.face_halo.gather": 8, "xtt.kernels.face_shift": 8, "xtt.arith.binop": 2,
     }
+
+
+def test_face_pad_counter_counts_generic_pads_only():
+    """On ``llc_grid(n=8)``: a diff along X takes E, opens no
+    ``xtt.face_pad.generic`` and leaves ``padding.FACE_PADS`` as it was; the
+    same diff through the generic engine pads the faces and counts one call,
+    in the counter and, under the profiler, in the span."""
+    from xgcm_tpu_torch.core import gridops, padding
+
+    _, grid = xtt.grids.llc_grid(n=8)
+    t = xtt.GriddedArray(torch.rand(13, 8, 8), ("face", "y", "x"))
+    before = padding.FACE_PADS["calls"]
+    _profiled(lambda: grid.diff(t, "X"))
+    assert padding.FACE_PADS["calls"] == before
+    assert "xtt.face_pad.generic" not in utils.span_totals()
+
+    def generic():
+        return gridops.diff_center_to_left(grid, t, axis=[("X",)])
+
+    _profiled(generic)
+    assert padding.FACE_PADS["calls"] == before + 1
+    assert utils.span_totals()["xtt.face_pad.generic"]["calls"] == 1
+    generic()  # no profiler: counted, no span
+    assert padding.FACE_PADS["calls"] == before + 2
+    assert utils.span_totals()["xtt.face_pad.generic"]["calls"] == 1
+
+
+def test_face_pad_reader():
+    """``face_pad.generic_calls``: the span's calls a step, 0 where the
+    window opened none, None for a program without the counter."""
+    from xgcm_tpu_torch.core import padding
+
+    tr = trace.Trace(steps=4, window_us=1.0, ops=[], busy_us=0.0, gaps=[])
+    read = _reader("face_pad.generic_calls").read
+    assert read(tr, None) == 0.0
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(profiling, "_SPAN_TOTALS", {"xtt.face_pad.generic": [8, 0.001]})
+        assert read(tr, None) == 2.0
+        mp.delattr(padding, "FACE_PADS")
+        assert read(tr, None) is None
 
 
 def _recipe_span_names():
@@ -275,9 +321,12 @@ def test_cell_rehearsal_reports_program_metrics(name, monkeypatch):
     want = _listed(name)
     assert want <= set(line["metrics"])
     assert all(line["metrics"][m]["value"] > 0 for m in want)
-    # a cell with no span's host time listed reads the sharded layer's
-    # assemblies: 0, nothing assembled
-    assert want or line["metrics"]["sharded.assemblies"]["value"] == 0
+    # a cell with no span's host time listed reads a counter of what it
+    # should never do: 0, nothing assembled across cards, no generic face pad
+    zero = [m["name"] for m in SPEC["per_layer"]
+            if m["name"] in ZERO_COUNTERS and name in m["workloads"]]
+    assert want or zero
+    assert all(line["metrics"][m]["value"] == 0 for m in zero)
     calls = sum(t["calls"] for n, t in utils.span_totals().items()
                 if n.startswith("xtt.kernels."))
     assert calls == line["attempted"] * sum(cell.recipe.LAUNCHES.values())

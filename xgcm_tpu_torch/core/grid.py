@@ -174,6 +174,10 @@ class Grid:
         else:
             self._facedim = None
             self._face_connections = None
+        # the axes that the face connections name, sorted
+        self._face_axes: List[str] = sorted(
+            {a for links in face_connections[self._facedim].values() for a in links}
+        ) if face_connections else []
         # device copies of the compiled face plans, by (x axis, y axis, device,
         # rows)
         self._face_plans: Dict[Any, Any] = {}
@@ -632,18 +636,26 @@ class Grid:
         direction = FUSABLE_PAIRS[(from_pos, to_pos)]
 
         if self._face_connections is not None:
-            fused = self._maybe_fused_face_op(
-                funcname, array, ax_name, dim, direction, boundary,
-                float(fill_value), vector_axis=vector_axis, partner=partner,
-            )
-            if fused is None:
+            if ax_name in self._face_axes or self._facedim not in array.dims:
+                fused = self._maybe_fused_face_op(
+                    funcname, array, ax_name, dim, direction, boundary,
+                    float(fill_value), vector_axis=vector_axis, partner=partner,
+                )
+                if fused is None:
+                    return None
+                data, arranged_dims = fused
+                dims = tuple(out_dim if d == dim else d for d in arranged_dims)
+                return GriddedArray(data, dims, name=array.name).transpose(
+                    *(out_dim if d == dim else d for d in array.dims)
+                )
+            if boundary == "extrapolate":
+                # the generic engine extrapolates as x0 - (x1 - x0), kernel
+                # A as 2 x0 - x1: the two round apart
                 return None
-            data, arranged_dims = fused
-            dims = tuple(out_dim if d == dim else d for d in arranged_dims)
-            return GriddedArray(data, dims, name=array.name).transpose(
-                *(out_dim if d == dim else d for d in array.dims)
-            )
 
+        # a face-less grid, or faces and an axis that no face connection
+        # names (Z, T): the generic engine pads such an axis with its
+        # boundary condition alone, as kernel A does
         data = fused_shift_op(
             array.data,
             array.get_axis_num(dim),
@@ -670,14 +682,9 @@ class Grid:
         facedim = self._facedim
         if facedim not in array.dims:
             return None
-        # the two face-spanning axes: the op axis plus the other axis named
-        # in the connections
-        conn_axes = sorted(
-            {a for links in self._face_connections[facedim].values() for a in links}
-        )
-        if ax_name not in conn_axes and len(conn_axes) > 2:
-            return None
-        axes2 = sorted(set(conn_axes) | {ax_name})
+        # the two face-spanning axes: those the connections name, the op
+        # axis among them
+        axes2 = self._face_axes
         if len(axes2) == 1:
             # a second spatial axis defines the strips: any other axis the
             # array spans

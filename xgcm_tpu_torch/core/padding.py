@@ -18,6 +18,9 @@ condition and its connected halos are then replaced by the neighbour faces'
 edge strips (:func:`_pad_face_connections`): the generic engine behind every
 case the fused face path (``ops/fused.py``) declines, built from slices,
 ``flip`` and ``torch.cat`` as the JAX package's is from ``jnp.concatenate``.
+Each such pad opens the span ``xtt.face_pad.generic`` and counts in
+:data:`FACE_PADS` (always on, as ``build.LAUNCHES``), so that an op that
+falls to the generic engine on a face-connected grid shows.
 """
 
 from __future__ import annotations
@@ -27,12 +30,16 @@ from typing import TYPE_CHECKING, Dict, Mapping, Optional, Tuple, Union
 import torch
 
 from ..ops.stencils import wrapping
+from ..utils.profiling import span
 from .dataarray import GriddedArray, as_tensor
 
 if TYPE_CHECKING:
     from .grid import Grid
 
-__all__ = ["pad", "BOUNDARY_TO_PAD_MODE"]
+__all__ = ["pad", "BOUNDARY_TO_PAD_MODE", "FACE_PADS"]
+
+# calls of the generic face-connection pad in this process
+FACE_PADS = {"calls": 0}
 
 BOUNDARY_TO_PAD_MODE = {
     "periodic": "wrap",
@@ -181,6 +188,7 @@ def _rename_positions_like(
     return source.rename_dims(rename)
 
 
+@span("xtt.face_pad.generic")
 def _pad_face_connections(
     da: Union[GriddedArray, Dict[str, GriddedArray]],
     grid: "Grid",
@@ -193,6 +201,7 @@ def _pad_face_connections(
     requested width, replace the connected halos with the source faces'
     strips (in sorted-axis order, so corner cells match the JAX package),
     then trim back to the requested widths."""
+    FACE_PADS["calls"] += 1
     facedim = grid._facedim
     connections = grid._face_connections
     if connections is None or facedim is None:

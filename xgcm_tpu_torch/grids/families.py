@@ -11,6 +11,8 @@ The port's counterparts of :mod:`xgcm_tpu.grids.families`:
 * **Cubed sphere**: six square faces with the standard connection table.
 * **LLC** (MITgcm lat-lon-cap): thirteen faces, the topology of the
   LLC4320 simulation.
+* **ECCO v4r4**: the LLC90 grid under the native dimension names of the
+  ECCO version 4 release 4 files, with its vertical and time axes.
 
 Each factory returns ``(ds, grid)``; the C-grid datasets carry spherical
 metric coordinates, registered with the grid, so the metric-weighted ops
@@ -31,6 +33,7 @@ __all__ = [
     "CUBED_SPHERE_CONNECTIONS",
     "LLC_CONNECTIONS",
     "cubed_sphere_grid",
+    "ecco_llc_grid",
     "llc_grid",
     "mitgcm_c_grid",
     "mom6_symmetric_grid",
@@ -276,5 +279,65 @@ def llc_grid(n: int = 48) -> Tuple[Dataset, Grid]:
         face_connections=LLC_CONNECTIONS,
         periodic=False,
         autoparse_metadata=True,
+    )
+    return ds, grid
+
+
+def ecco_llc_grid(
+    n: int = 90,
+    nz: int = 50,
+    nt: int = 12,
+    rA=None,
+    drF=None,
+    hFacC=None,
+    Depth=None,
+) -> Tuple[Dataset, Grid]:
+    """The LLC grid of ECCO version 4 release 4 under its native names.
+
+    The ECCOv4-py tutorial "ECCO v4 heat budget closure"
+    (https://ecco-v4-python-tutorial.readthedocs.io/ECCO_v4_Heat_budget_closure.html)
+    runs its budget with xgcm on this grid.  The v4r4 native files lay a
+    tracer out as ``(time, k, tile, j, i)``: 13 tiles of ``n`` x ``n``
+    columns (90 for LLC90), ``nz`` levels (50) and ``nt`` monthly means
+    between ``nt + 1`` snapshots.  The axes:
+
+    * X: ``i`` (center), ``i_g`` (left); Y: ``j``, ``j_g``;
+    * Z: ``k`` (center), ``k_l`` (left, the top face of each level),
+      ``k_u`` (right, its bottom face), ``k_p1`` (outer, every face);
+    * T: ``time`` (center, the monthly means), ``time_snp`` (outer, the
+      snapshots between them);
+
+    with the LLC face connections (:data:`LLC_CONNECTIONS`) on ``tile`` and
+    no periodic axis.  The static fields given (``rA`` on (tile, j, i),
+    ``drF`` on (k,), ``hFacC`` on (k, tile, j, i), ``Depth`` on (tile, j,
+    i)) are attached as coordinates of the dataset, so that a user's own
+    grid files travel with the grid.
+    """
+    coords = {
+        "i": ("i", np.arange(n)), "i_g": ("i_g", np.arange(n)),
+        "j": ("j", np.arange(n)), "j_g": ("j_g", np.arange(n)),
+        "k": ("k", np.arange(nz)), "k_l": ("k_l", np.arange(nz)), "k_u": ("k_u", np.arange(nz)),
+        "k_p1": ("k_p1", np.arange(nz + 1)),
+        "time": ("time", np.arange(nt) + 0.5), "time_snp": ("time_snp", np.arange(nt + 1) * 1.0),
+        "tile": ("tile", np.arange(13)),
+    }
+    for name, dims, value in (
+        ("rA", ("tile", "j", "i"), rA), ("drF", ("k",), drF),
+        ("hFacC", ("k", "tile", "j", "i"), hFacC), ("Depth", ("tile", "j", "i"), Depth),
+    ):
+        if value is not None:
+            coords[name] = (dims, np.asarray(value))
+    ds = Dataset(coords=coords)
+    grid = _quiet_grid(
+        ds,
+        coords={
+            "X": {"center": "i", "left": "i_g"},
+            "Y": {"center": "j", "left": "j_g"},
+            "Z": {"center": "k", "left": "k_l", "right": "k_u", "outer": "k_p1"},
+            "T": {"center": "time", "outer": "time_snp"},
+        },
+        face_connections={"tile": LLC_CONNECTIONS["face"]},
+        periodic=False,
+        autoparse_metadata=False,
     )
     return ds, grid

@@ -208,12 +208,7 @@ def sharded_apply_many(
             # face dim local on every shard: the ring route serves sharded
             # non-connected axes; a sharded face-connected dim has no
             # shard-local halo (the single-op engine's rule)
-            conn_dims = {
-                d
-                for links in grid._face_connections[grid._facedim].values()
-                for a in links
-                for d in grid.axes[a].coords.values()
-            }
+            conn_dims = {d for a in grid._face_axes for d in grid.axes[a].coords.values()}
             bad = sorted(conn_dims & set(dim_to_mesh_axis))
             if bad:
                 raise NotImplementedError(

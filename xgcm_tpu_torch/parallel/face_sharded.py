@@ -119,7 +119,7 @@ def face_axis_roles(grid: Grid, dim_to_mesh_axis, data_dims, *, strict: bool = T
                 "decomposition of face grids is not supported)"
             )
         return None
-    conn_axes = sorted({a for links in grid._face_connections[facedim].values() for a in links})
+    conn_axes = grid._face_axes
     if len(conn_axes) == 1:
         # ring topologies connect along one axis only; the other in-face
         # axis is whichever remaining grid axis the data spans

@@ -221,11 +221,7 @@ def ring_kernel_ok(funcname: str, dtype: torch.dtype, boundary, extra_kwargs=())
 
 
 def _face_connected_axis(grid: Grid, axis_name: str) -> bool:
-    if grid._face_connections is None:
-        return False
-    return axis_name in {
-        a for links in grid._face_connections[grid._facedim].values() for a in links
-    }
+    return axis_name in grid._face_axes
 
 
 def _face_route(grid: Grid, da: GriddedArray, axis_name: str, dim_to_mesh_axis):

@@ -132,8 +132,7 @@ class ShardedGrid:
         )
 
     def _conn_axes(self):
-        grid = self.grid
-        return {a for links in grid._face_connections[grid._facedim].values() for a in links}
+        return set(self.grid._face_axes)
 
     def _face_sharded_args(self, da):
         """(mesh_axis, x_axis, y_axis, interior_y, interior_x) when the

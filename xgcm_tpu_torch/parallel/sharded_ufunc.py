@@ -273,12 +273,7 @@ def sharded_apply_as_grid_ufunc(
             # intact locally, so the ring route serves sharded NON-connected
             # axes (Z), but a sharded face-connected dim would need rotated
             # cross-face strips from other shards
-            conn_dims = {
-                d
-                for links in grid._face_connections[grid._facedim].values()
-                for a in links
-                for d in grid.axes[a].coords.values()
-            }
+            conn_dims = {d for a in grid._face_axes for d in grid.axes[a].coords.values()}
             bad = sorted(conn_dims & {d for d, m in dim_to_mesh_axis.items() if m is not None})
             if bad:
                 raise NotImplementedError(

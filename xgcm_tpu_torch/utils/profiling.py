@@ -5,8 +5,8 @@ timer, a wrapper over ``torch.profiler`` traces, and the program's own
 spans.
 
 :func:`span` marks a layer boundary of the package (``xtt.<layer>.<what>``:
-``grid_api``, ``arith``, ``face_halo``, ``transform``, ``kernels``,
-``bridge``).  While a ``torch.profiler`` records, each span is a
+``grid_api``, ``arith``, ``face_halo``, ``face_pad``, ``transform``,
+``kernels``, ``bridge``).  While a ``torch.profiler`` records, each span is a
 ``record_function`` range, so it lands in the trace beside the card's
 kernels, copies and memsets, on their clock, and it adds its call and its
 host self time to a table that :func:`span_totals` reads.  While none
